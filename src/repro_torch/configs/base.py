@@ -2,8 +2,11 @@
 
 Field names, defaults and ``__post_init__`` validation mirror
 ``repro.configs.base`` so that a configuration means the same run in both
-packages. ``ModelConfig`` keeps only the fields the paper's CNN reads; the
-LM families are not part of the port yet and ``get_config`` refuses them.
+packages. ``ModelConfig`` keeps the fields the paper's CNN and the dense
+decoder family read (the MoE fields only so that ``DecoderLM`` can refuse
+an MoE config by name); ``use_pallas`` is not carried across — the
+device of the tensors picks kernel or plain version. ``get_config``
+resolves the ported architectures and refuses every other by name.
 
 Configs are plain data: features the port does not run yet (membership,
 hierarchy, sharded placement, ``u_zclip``, the adversarial scenarios) are
@@ -13,22 +16,73 @@ still valid *configurations*; the trainer and the session raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import importlib
+from typing import Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "cnn" runs in the port
+    family: str  # "cnn" | "dense" run in the port
     num_layers: int
     d_model: int
     num_heads: int
     d_ff: int
     vocab_size: int
+    num_kv_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    # norms / activations
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    act: str = "swiglu"  # swiglu | gelu | geglu
+    qk_norm: bool = False
+    # rope
+    rope_mode: str = "standard"  # standard | mrope | none
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    mrope_sections: Tuple[int, ...] = ()
+    # attention locality
+    sliding_window: Optional[int] = None
+    attention_chunk: Optional[int] = None
+    # embeddings
+    tie_embeddings: bool = False
+    # MoE (not ported: DecoderLM refuses a config with experts)
+    num_experts: int = 0
+    top_k: int = 1
+    num_shared_experts: int = 0
+    expert_d_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0
+    router_aux_weight: float = 0.01
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     source: str = ""  # citation
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def moe(self) -> bool:
+        return self.num_experts > 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 
 # Failure scenario catalogue (generators in repro_torch/core/scenarios.py).
@@ -222,6 +276,7 @@ class OptimizerConfig:
 
 
 ARCH_ALIASES = {"paper-cnn": "paper_cnn"}
+PORTED_ARCHS = ("paper_cnn", "qwen3_4b")
 
 
 def normalize_arch(arch: str) -> str:
@@ -229,12 +284,13 @@ def normalize_arch(arch: str) -> str:
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    """The port runs the paper's CNN only; every LM architecture raises."""
-    if normalize_arch(arch) != "paper_cnn":
+    """``CONFIG`` (or ``SMOKE``) of a ported architecture; every other
+    architecture raises ``NotImplementedError`` naming itself."""
+    name = normalize_arch(arch)
+    if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r}: the LM families are not ported to PyTorch yet "
-            "(only 'paper-cnn' runs)")
-    from repro_torch.configs import paper_cnn
-
-    return paper_cnn.SMOKE if smoke else paper_cnn.CONFIG
+            f"arch {arch!r} is not ported to PyTorch yet (ported: "
+            f"{', '.join(PORTED_ARCHS)})")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return mod.SMOKE if smoke else mod.CONFIG
 

@@ -10,8 +10,10 @@ def kernels() -> Dict[str, CudaKernel]:
     """Every CUDA kernel of the port, by C entry-point name."""
     from repro_torch.kernels.adahessian import ops as ada
     from repro_torch.kernels.elastic import ops as ela
+    from repro_torch.kernels.flash_attention import ops as fla
 
-    return {k.name: k for k in (ada.KERNEL, ela.BATCHED_KERNEL, ela.KERNEL)}
+    return {k.name: k for k in (ada.KERNEL, ela.BATCHED_KERNEL, ela.KERNEL,
+                                fla.KERNEL)}
 
 
 def reset_launch_counts() -> None:

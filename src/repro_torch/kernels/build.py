@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("adahessian.cu", "elastic.cu")
+SOURCES = ("adahessian.cu", "elastic.cu", "flash_attention.cu")
 
 
 def _nvcc() -> str:
@@ -109,10 +109,28 @@ class CudaKernel:
 def check_f32(name: str, *tensors: torch.Tensor) -> torch.device:
     """Common wrapper checks: float32, contiguous, one device (cuda or
     cpu). Returns that device."""
-    dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: needs float32 tensors, got {t.dtype}")
+    return _check_placement(name, tensors)
+
+
+def check_f32_or_bf16(name: str, *tensors: torch.Tensor) -> torch.device:
+    """As :func:`check_f32`, for kernels templated on the element type:
+    float32 or bfloat16, one dtype for all ``tensors``."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: needs float32 or bfloat16 tensors, got "
+                        f"{dtype}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
+    return _check_placement(name, tensors)
+
+
+def _check_placement(name, tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous tensors")
         if t.device != dev:

@@ -84,3 +84,28 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.elastic_update_batched(w, m, h)
     assert torch.equal(w, torch.zeros(2, 3))
+
+
+def test_flash_cuda_tensors_never_take_the_plain_path(monkeypatch):
+    """The same for the flash-attention wrapper: a tensor that claims to be
+    on CUDA goes to the kernel, whose failed build raises; the plain
+    version never runs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "library_path",
+                        lambda src: ROOT / "build" / "absent" / "x.so")
+    monkeypatch.setattr(ops.KERNEL, "_fn", None)
+    monkeypatch.setattr(ops, "check_f32_or_bf16",
+                        lambda *a: torch.device("cuda"))
+    monkeypatch.setattr(ops, "flash_attention_plain", plain)
+    q, kv = torch.zeros(1, 128, 4, 64), torch.zeros(1, 128, 2, 64)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.flash_attention_bshd(q, kv, kv)

@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
-card, at the paper CNN's parameter count, with the reference's tolerances
-(AdaHessian step rtol 2e-5, atol 2e-6; batched elastic exchange rtol 1e-5,
-atol 1e-6; one-worker exchange 1e-6). Marked ``cuda``: without a card
+card, with the reference's tolerances: the elastic-training kernels at the
+paper CNN's parameter count (AdaHessian step rtol 2e-5, atol 2e-6; batched
+elastic exchange rtol 1e-5, atol 1e-6; one-worker exchange 1e-6), flash
+attention over the CPU tests' sweep plus qwen3-4b's prefill shape (2e-5
+in float32, 2e-2 in bfloat16). Marked ``cuda``: without a card
 every test skips. Imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -12,6 +14,7 @@ import torch
 from repro_torch.kernels import kernels, reset_launch_counts
 from repro_torch.kernels.adahessian import ops as tada
 from repro_torch.kernels.elastic import ops as tela
+from repro_torch.kernels.flash_attention import ops as tfla
 from repro_torch.optim.adahessian import bias_corrections
 
 
@@ -80,3 +83,27 @@ def test_elastic_one_worker_kernel_matches_plain(cuda):
     tela.elastic_update_plain(w, m, h)
     torch.testing.assert_close(w2, w, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(m2, m, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,KVH,S,D", [
+    (1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
+    (1, 32, 8, 512, 128)])  # the last: qwen3-4b's prefill at 512 tokens
+@pytest.mark.parametrize("mask", [
+    dict(causal=True), dict(causal=False), dict(causal=True, window=17),
+    dict(causal=True, window=96), dict(causal=True, chunk=64)])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, KVH, S, D, mask):
+    """Flash attention, kernel against plain version, at the reference's
+    tolerances (2e-5 in float32, 2e-2 in bfloat16)."""
+    gen = torch.Generator(cuda).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, KVH, D, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    reset_launch_counts()
+    got = tfla.flash_attention_bshd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert kernels()["flash_attention_fwd"].launches == 1
+    want = tfla.flash_attention_plain(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
