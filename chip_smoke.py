@@ -11,9 +11,10 @@ failure:
 2. build: nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
    all sources at once;
 3. kernels: each CUDA kernel at its path's shapes (the elastic kernels
-   at k=8 workers, n=1,199,882 parameters; flash attention over the CPU
-   tests' sweep and qwen3-4b's prefill, in float32 and bfloat16) against
-   its plain PyTorch version on the same inputs, at the reference's
+   at k=8 workers, n=1,199,882 parameters; the single-worker AdaHessian
+   step at that n and at an odd n; flash attention over the CPU tests'
+   sweep and qwen3-4b's prefill, in float32 and bfloat16) against its
+   plain PyTorch version on the same inputs, at the reference's
    tolerances, then timed with CUDA events (median of 30 after warm-up)
    beside the plain version, the card's bound and, for flash attention,
    ``scaled_dot_product_attention`` (timed only);
@@ -24,6 +25,15 @@ failure:
    never, and every loss is finite;
 5. devices: two DEAHES-O rounds on the card and on the CPU (plain
    versions) from the same carried params and probes; the masters agree;
+5b. training CLI: ``launch/train.py``'s ``main`` at the paper's full
+   width, counts zeroed just before each run and read just after:
+   DEAHES-O defaults at k=8, τ=4 for 8 rounds with ``--save`` (the saved
+   master read back bit for bit, then a 2-round warm start from it),
+   ``--plain`` for 50 steps (50 launches of the single-worker AdaHessian
+   kernel, none of the batched one), and 4 rounds each of the byzantine
+   (noise, ``--score-clip 3``), hetero (τ=4) and ``--u-zclip 3`` runs;
+5c. plain devices: three plain-mode steps on the card and on the CPU
+   from the same carried params and probes; params agree per leaf;
 6. serving path: qwen3-4b at full width (4,022,468,096 bf16 params drawn
    on the card) through ``launch/serve.py``'s continuous engine over a
    16-request bursty trace, counts zeroed just before: flash attention
@@ -32,24 +42,30 @@ failure:
    ``torch.profiler`` window over one decode tick and one admit;
 7. serving devices: 2 layers at full width in float32 on the card and on
    the CPU from the same params, prefill and 4 decode steps agree;
-8. a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line, the
-   ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line.
+8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
+   ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
 port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 K, N = 8, 1_199_882          # the §VI trainer at k=8: PaperCNN's n
+N_ODD = 999_983              # an odd n for the single-worker step
 # (memory B/s, f32 FLOP/s without tensor cores, dense bf16 tensor-core
 # FLOP/s), NVIDIA data sheets
 CARDS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
@@ -85,11 +101,14 @@ def card_rates(name: str):
     raise RuntimeError(f"no memory/FLOP rates on record for {name!r}")
 
 
-def median_ms(torch, fn, reps: int = 30, warm: int = 5) -> float:
+def median_ms(torch, fn, reps: int = 30, warm: int = 5,
+              flush=None) -> float:
     """Median device time of ``fn`` over ``reps`` calls. Each timed call
     is queued behind a ~5 ms GPU sleep, so the host has enqueued it before
     the start event fires: the events bracket device work only, not the
-    host's launch latency (tens of µs through Python and ctypes)."""
+    host's launch latency (tens of µs through Python and ctypes). With
+    ``flush`` (a tensor larger than the 50 MB L2), it is zeroed before each
+    timed call, so ``fn`` finds its inputs in device memory, not in L2."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -97,6 +116,8 @@ def median_ms(torch, fn, reps: int = 30, warm: int = 5) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
         torch.cuda._sleep(10_000_000)  # GPU clock cycles
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -106,6 +127,7 @@ def median_ms(torch, fn, reps: int = 30, warm: int = 5) -> float:
 
 def check_kernels(torch, rates):
     """Phase 3: every kernel against its plain version, then timed."""
+    from repro_torch.configs.base import OptimizerConfig
     from repro_torch.kernels.adahessian import ops as ada
     from repro_torch.kernels.elastic import ops as ela
     from repro_torch.optim.adahessian import bias_corrections
@@ -199,6 +221,43 @@ def check_kernels(torch, rates):
                 "replaces": "src/repro/kernels/elastic/kernel.py:39",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # -- K4: one worker's AdaHessian step (the plain control), at the paper
+    #    CNN's n and at an odd n; scalars from the step count on the card --
+    scalars = ada.pack_scalars(OptimizerConfig(lr=0.01),
+                               torch.tensor(3, device=dev))
+    entry = {"name": ada.FLAT_KERNEL.name, "route": "cuda",
+             "source": "src/repro_torch/csrc/adahessian.cu",
+             "replaces": "src/repro/kernels/adahessian/kernel.py:59",
+             "library_ms": None}
+    errs = {}
+    for n in (N, N_ODD):
+        p, g, h, m = rnd(n), rnd(n), rnd(n), rnd(n, s=0.1)
+        v = rnd(n, s=0.1).abs()
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        ada.adahessian_step(kp, g, h, km, kv, scalars)
+        ada.adahessian_step_plain(p, g, h, m, v, scalars)
+        torch.cuda.synchronize()
+        for got, want in ((kp, p), (km, m), (kv, v)):
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+        errs[n] = max(max_err(kp, p), max_err(km, m), max_err(kv, v))
+        if n == N:
+            # its five (n,) inputs, 24 MB, fit in the 50 MB L2: timed with
+            # L2 flushed before each call (against the device-memory
+            # bound) and, as warm_ms, with them left in L2
+            flush = torch.empty(64 << 20, device=dev)  # 256 MB
+            step = lambda: ada.adahessian_step(kp, g, h, km, kv, scalars)
+            ms = median_ms(torch, step, flush=flush)
+            warm_ms = median_ms(torch, step)
+            plain_ms = median_ms(torch, lambda: ada.adahessian_step_plain(
+                p, g, h, m, v, scalars), flush=flush)
+            del flush
+        del p, g, h, m, v, kp, km, kv
+    b_ms, b_by = bound(32 * N + 4 * 7, 17 * N)
+    entry.update({"max_abs_err": errs[N], "odd_n": N_ODD,
+                  "odd_max_abs_err": errs[N_ODD], "ms": ms,
+                  "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by})
+    out.append(entry)
     for e in out:
         log(f"  {e['name']}: max_abs_err {e['max_abs_err']:.3g}, kernel "
             f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
@@ -207,8 +266,11 @@ def check_kernels(torch, rates):
                f"{e['stale_ms']:.4f} ms, plain {e['stale_plain_ms']:.4f} "
                f"ms, bound {e['stale_bound_ms']:.4f} ms"
                if "stale_ms" in e else ""))
+    log(f"  adahessian_update_flat: L2 flushed before each call (plain "
+        f"too); with its inputs left in L2 {warm_ms:.4f} ms; at odd "
+        f"n={N_ODD}: max_abs_err {errs[N_ODD]:.3g}")
     log("  library_ms: none — no single PyTorch call computes any of "
-        "these three functions")
+        "these four functions")
     return out
 
 
@@ -308,6 +370,7 @@ def main_path(torch):
         moved = {n: x.launches - before[n] for n, x in kernels().items()}
         hess = METHODS[method][0] == "adahessian"
         want = {"adahessian_update_batched": rounds * tau if hess else 0,
+                "adahessian_update_flat": 0,
                 "elastic_update": rounds * k if comm == "sequential" else 0,
                 "elastic_update_batched": rounds if comm == "fused" else 0,
                 "flash_attention_fwd": 0}
@@ -388,6 +451,213 @@ def device_parity(torch):
             worst_abs = max(worst_abs, float((got - want).abs().max()))
         log(f"  DEAHES-O {comm}: cuda vs cpu master max abs err "
             f"{worst_abs:.3g}, worst leaf norm-wise {worst_norm:.3g}")
+
+
+def _leaf_parity(torch, layout, got, want, what, norm_tol):
+    """Per-leaf agreement of two flat float64 buffers: elementwise rtol 1e-4
+    with an atol of 2% of the leaf's scale (a max-pool window whose two
+    largest conv outputs are within a few ulps can pick a different winner
+    on the two devices; tests/test_torch_session.py measures it), and
+    norm-wise within ``norm_tol``. Returns (worst norm-wise, worst abs)."""
+    worst_norm, worst_abs = 0.0, 0.0
+    for leaf in layout.leaves:
+        sl = slice(leaf.offset, leaf.offset + leaf.size)
+        g, w = got[sl], want[sl]
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=2e-2 * float(w.abs().max()))
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        if rel > norm_tol:
+            raise AssertionError(f"{what} {leaf.name}: cuda vs cpu norm-wise "
+                                 f"{rel:.2e} > {norm_tol:g}")
+        worst_norm = max(worst_norm, rel)
+        worst_abs = max(worst_abs, float((g - w).abs().max()))
+    return worst_norm, worst_abs
+
+
+def train_cli(torch):
+    """Phase 5b: the training CLI on the card at the paper's full width
+    (PaperCNN, 1,199,882 parameters, the CLI's 8000 synthetic images),
+    through ``repro_torch.launch.train.main`` as a user calls it. Each
+    run's kernel launches are counted from 0 and must be exactly what its
+    path calls. Returns (the ``train_cli`` record, the plain run's
+    launches)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.launch.train import main
+    from repro_torch.nn.param import tree_leaves
+
+    def run(label, argv, want):
+        reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            sess, recs = main(argv)
+        moved = {n: x.launches for n, x in kernels().items()}
+        full = {n: want.get(n, 0) for n in moved}
+        if moved != full:
+            raise AssertionError(f"{label}: launches {moved}, expected "
+                                 f"{full}")
+        if not bool(torch.isfinite(sess.master_params).all()):
+            raise AssertionError(f"{label}: non-finite master params")
+        last = [line for line in buf.getvalue().splitlines()
+                if line.startswith(("round ", "step "))][-1]
+        steady = statistics.median(r.round_ms for r in recs[1:])
+        log(f"  {label}: {len(recs)} rounds, median round ms {steady:.2f} "
+            f"(first {recs[0].round_ms:.1f}), launches "
+            f"{ {n: c for n, c in moved.items() if c} }")
+        log(f"    last: {last[:240]}")
+        return sess, recs, {"rounds": len(recs), "round_ms": steady,
+                            "first_round_ms": recs[0].round_ms,
+                            "final_loss": recs[-1].loss,
+                            "launches": moved}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "deahes_o")
+        # (a) DEAHES-O defaults at k=8, τ=4, sequential comm, with --save
+        sess, recs, rec = run(
+            "DEAHES-O k=8 tau=4 --save",
+            ["--workers", "8", "--tau", "4", "--rounds", "8", "--save", ck],
+            {"adahessian_update_batched": 32, "elastic_update": 64})
+        if not all(math.isfinite(r.loss) for r in recs):
+            raise AssertionError("DEAHES-O: a non-finite loss")
+        master = sess.master_params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back, meta = checkpoint.restore(ck, like=sess.master_tree())
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        leaves = dict(tree_leaves(back))
+        flat = torch.cat([leaves[leaf.path].reshape(-1)
+                          for leaf in sess.layout.leaves])
+        if not torch.equal(flat, master) or meta["rounds"] != 8:
+            raise AssertionError("checkpoint.restore did not read back the "
+                                 "saved master bit for bit")
+        t0 = time.perf_counter()
+        sess.save(os.path.join(tmp, "again"))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(ck, f))
+                     for f in os.listdir(ck))
+        warm = ElasticSession(dataclasses.replace(sess.spec, rounds=2,
+                                                  save_path=None))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.restore(ck)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(warm.state["master"], master) and torch.equal(
+                warm.state["u_hist"], sess.state["u_hist"])):
+            raise AssertionError("warm start: master or u-history differ")
+        reset_launch_counts()
+        warm_recs = warm.run()
+        warm_launches = {n: x.launches for n, x in kernels().items()}
+        if (warm_launches["adahessian_update_batched"] != 8
+                or warm_launches["elastic_update"] != 16
+                or not all(math.isfinite(r.loss) for r in warm_recs)):
+            raise AssertionError(f"warm start: launches {warm_launches}, "
+                                 f"losses {[r.loss for r in warm_recs]}")
+        out["deahes_o"] = rec
+        out["checkpoint"] = {
+            "bytes": nbytes, "files": len(os.listdir(ck)),
+            "save_ms": save_ms, "restore_ms": restore_ms,
+            "session_restore_ms": warm_ms, "bitwise": True,
+            "warm_start_losses": [r.loss for r in warm_recs]}
+        log(f"  checkpoint: {nbytes} bytes in {len(os.listdir(ck))} files, "
+            f"save {save_ms:.2f} ms, restore {restore_ms:.2f} ms (bit for "
+            f"bit), session warm start {warm_ms:.2f} ms, then 2 rounds: "
+            f"losses {[round(r.loss, 4) for r in warm_recs]}")
+        del sess, warm
+    # (b) the plain control: 50 single-worker steps, all through kernel 1
+    sess, recs, rec = run("plain x50", ["--plain", "--rounds", "50"],
+                          {"adahessian_update_flat": 50})
+    if not all(math.isfinite(r.loss) for r in recs):
+        raise AssertionError("plain: a non-finite loss")
+    rec["step_ms"] = rec.pop("round_ms")
+    batch = {key: val[0, 0] for key, val in
+             sess._to_device(sess.batcher.round_batches()).items()}
+    rec["profile"] = profile_window(
+        torch, "plain step (profiled)",
+        lambda: sess._step(sess.state, batch, sess.round), 3)
+    out["plain"] = rec
+    plain_launches = rec["launches"]
+    # (c) the adversarial channels and the distance clamp
+    runs = {
+        "byzantine": ["--failure-scenario", "byzantine", "--byzantine-mode",
+                      "noise", "--score-clip", "3"],
+        "hetero": ["--failure-scenario", "hetero"],
+        "u_zclip": ["--u-zclip", "3", "--comm-mode", "fused"]}
+    for label, extra in runs.items():
+        want = {"adahessian_update_batched": 16}
+        want["elastic_update_batched" if label == "u_zclip"
+             else "elastic_update"] = 4 if label == "u_zclip" else 32
+        sess, recs, rec = run(f"{label} k=8 tau=4", [
+            "--workers", "8", "--tau", "4", "--rounds", "4"] + extra, want)
+        if label == "byzantine":
+            bad = sess.schedule.corrupt[0]
+            honest = [r.loss_w[~bad] for r in recs]
+            if not bad.any() or not all(np.isfinite(x).all()
+                                        for x in honest):
+                raise AssertionError("byzantine: no corrupt slot, or a "
+                                     "non-finite honest loss")
+            rec["corrupt_slots"] = np.flatnonzero(bad).tolist()
+            rec["refused_rounds"] = [
+                int(((r.h2 == 0) & bad & ~r.fail).sum()) for r in recs]
+        else:
+            if not all(math.isfinite(r.loss) for r in recs):
+                raise AssertionError(f"{label}: a non-finite loss")
+        if label == "hetero":
+            if not sess.schedule.has_hetero:
+                raise AssertionError("hetero: every slot at full speed")
+            rec["speeds"] = sess.schedule.speed[0].tolist()
+        out[label] = rec
+    return out, plain_launches
+
+
+def plain_device_parity(torch):
+    """Phase 5c: the plain control on the card (single-worker kernel) and
+    on the CPU (its plain version) from the same carried params and
+    probes, three steps; params agree per leaf (elementwise rtol 1e-4,
+    atol 2% of the leaf's scale; norm-wise 1e-3, the ROADMAP's state
+    tolerance), and so do the losses (rtol 1e-4)."""
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession, RunSpec
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flatten import FlatLayout
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.nn.param import init_tree
+
+    spec_tree = PaperCNN(get_config("paper-cnn")).spec
+    layout = FlatLayout(spec_tree)
+    params = init_tree(torch.Generator().manual_seed(4), spec_tree)
+
+    def probes(device):
+        def fn(r, t, i):
+            rng = np.random.default_rng([12, r, t, i])
+            z = rng.integers(0, 2, (1, layout.n)).astype(np.float32) * 2 - 1
+            return torch.from_numpy(z).to(device)
+        return fn
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        sess = ElasticSession(RunSpec(plain=True, rounds=3, batch_size=32,
+                                      n_data=2000, n_test=100,
+                                      device=device),
+                              params=params, probe_fn=probes(device))
+        losses = [r.loss for r in sess.run()]
+        got[device] = (sess.state["params"].cpu().double(), losses)
+    worst_norm, worst_abs = _leaf_parity(torch, layout, got["cuda"][0],
+                                         got["cpu"][0], "plain", 1e-3)
+    np.testing.assert_allclose(got["cuda"][1], got["cpu"][1], rtol=1e-4)
+    log(f"  plain x3: cuda vs cpu params max abs err {worst_abs:.3g}, worst "
+        f"leaf norm-wise {worst_norm:.3g}; losses cuda {got['cuda'][1]} cpu "
+        f"{got['cpu'][1]}")
+    return {"max_abs_err": worst_abs, "worst_leaf_norm_rel": worst_norm}
 
 
 class WatchedLM:
@@ -538,9 +808,6 @@ def profile_serving(torch, model, params):
     row at position 512 of a 577-position cache) and one over 1 prefill of
     512 tokens; device busy share = the union of kernel intervals over the
     window's wall time, closed by ``synchronize()``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = torch.device("cuda")
     cache = model.init_cache(8, 577, dev)
     tok = torch.zeros(8, 1, dtype=torch.long, device=dev)
@@ -553,37 +820,46 @@ def profile_serving(torch, model, params):
         "admit prefill": (1, lambda: model.prefill(
             params, {"tokens": prompt}, scratch)),
     }
-    out = {}
     with torch.no_grad():
-        for name, (reps, fn) in calls.items():
+        return {name: profile_window(torch, name, fn, reps)
+                for name, (reps, fn) in calls.items()}
+
+
+def profile_window(torch, name, fn, reps):
+    """One ``torch.profiler`` window over ``reps`` calls of ``fn`` after
+    one warm-up call: wall time per call (closed by ``synchronize()``),
+    device busy time (the union of kernel intervals) and its share of the
+    wall time, kernels per call, and the top five kernels by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
             fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                           for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-            busy, end, by_name = 0.0, float("-inf"), {}
-            for start, stop, kname in spans:
-                busy += max(0.0, stop - max(start, end))
-                end = max(end, stop)
-                by_name[kname] = by_name.get(kname, 0.0) + stop - start
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-            out[name] = {"wall_ms": wall_us / reps / 1e3,
-                         "device_busy_ms": busy / reps / 1e3,
-                         "device_busy_share": busy / wall_us,
-                         "kernels": len(spans) // reps}
-            log(f"  {name}: {wall_us / reps / 1e3:.2f} ms wall, device busy "
-                f"{busy / reps / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
-                f"{len(spans) // reps} kernels; top device time: "
-                + "; ".join(f"{k[:60]} {v / reps / 1e3:.3f} ms"
-                            for k, v in top))
-    return out
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for start, stop, kname in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[kname] = by_name.get(kname, 0.0) + stop - start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {name}: {wall_us / reps / 1e3:.2f} ms wall, device busy "
+        f"{busy / reps / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{len(spans) // reps} kernels; top device time: "
+        + "; ".join(f"{k[:60]} {v / reps / 1e3:.3f} ms" for k, v in top))
+    return {"wall_ms": wall_us / reps / 1e3,
+            "device_busy_ms": busy / reps / 1e3,
+            "device_busy_share": busy / wall_us,
+            "kernels": len(spans) // reps}
 
 
 def serving_device_parity(torch):
@@ -682,17 +958,25 @@ def main() -> int:
     log("[5] card vs CPU, DEAHES-O, 2 rounds, carried params and probes")
     device_parity(torch)
 
+    log("[5b] training CLI at full width: launch/train.py main")
+    cli, plain_counts = train_cli(torch)
+    log("[5c] card vs CPU, plain control, 3 steps, carried params and probes")
+    cli["plain_card_vs_cpu"] = plain_device_parity(torch)
+
     log("[6] serving path: qwen3-4b at full width through launch/serve.py")
     serve_counts, serve_stats = serving_path(torch)
     for entry in table:
         name = entry["name"]
-        entry["launches"] = (serve_counts if name == "flash_attention_fwd"
-                             else totals)[name]
+        entry["launches"] = (
+            serve_counts if name == "flash_attention_fwd"
+            else plain_counts if name == "adahessian_update_flat"
+            else totals)[name]
 
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
     serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
 
     log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"train_cli": cli}))
     print(json.dumps({"serving": serve_stats}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

@@ -13,11 +13,18 @@ chunk boundaries still snap to eval rounds. ``RoundRecord.round_ms`` is the
 chunk's wall time per round, closed by ``torch.cuda.synchronize()`` on the
 card; ``dispatch_ms`` is the time until the host had queued the chunk.
 
-Not ported yet, each refused by name: ``plain`` mode, checkpoints
-(``save_path``, ``save``/``restore``), closed-loop control
-(``controller``, ``detector_blind``, ``apply``), membership and the
-adversarial channels (see ``repro_torch.core.coordinator.check_slice``),
-and the LM families.
+``RunSpec.plain`` is the single-worker control (the k=1 limit: no elastic
+sync, no failures, one "round" is one optimizer step through
+``repro_torch.train.steps``). ``save``/``restore`` write and read the
+master in the reference's checkpoint format (``repro_torch.checkpoint``);
+``RunSpec.save_path`` saves at the end of the run. The adversarial
+``corrupt``/``speed`` channels of the byzantine and hetero scenarios ride
+into every round.
+
+Not ported yet, each refused by name: closed-loop control
+(``controller``, ``detector_blind``, ``apply``), membership (schedules
+with an ``active`` channel; see also
+``repro_torch.core.coordinator.check_slice``) and LM training.
 """
 from __future__ import annotations
 
@@ -28,14 +35,18 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs.base import (ElasticConfig, ModelConfig,
                                       OptimizerConfig, get_config)
-from repro_torch.core.coordinator import ElasticTrainer, ProbeFn, RoundInputs
+from repro_torch.core.coordinator import (ElasticTrainer, NoiseFn, ProbeFn,
+                                          RoundInputs)
 from repro_torch.core.scenarios import ScenarioSchedule, make_scenario
 from repro_torch.data.pipeline import WorkerBatcher
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import PaperCNN
+from repro_torch.nn.param import tree_from_leaves
+from repro_torch.train.steps import init_train_state, make_train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +88,15 @@ class RunSpec:
             raise ValueError(
                 f"RunSpec.eval_every must be >= 0, got {self.eval_every}")
         if self.schedule is not None:
+            if self.plain:
+                raise ValueError(
+                    "RunSpec: plain mode has no failure schedule")
             want = (self.rounds, self.elastic.cap)
             if self.schedule.fail.shape != want:
                 raise ValueError(
                     f"RunSpec.schedule shape {self.schedule.fail.shape} != "
                     f"(rounds, capacity) = {want}")
-        for name, unported in (("plain", self.plain),
-                               ("save_path", self.save_path),
-                               ("controller", self.controller),
+        for name, unported in (("controller", self.controller),
                                ("detector_blind", self.detector_blind)):
             if unported:
                 raise NotImplementedError(
@@ -94,8 +106,9 @@ class RunSpec:
 @dataclasses.dataclass(frozen=True)
 class RoundRecord:
     """One communication round, on the host (fields as in the reference:
-    (k,) ``u/score/h1/h2/loss_w``, the schedule row that drove the round,
-    eval metrics on eval rounds, and the chunk's timings)."""
+    (k,) ``u/score/h1/h2/loss_w``, the schedule rows that drove the round,
+    eval metrics on eval rounds, and the chunk's timings). In plain mode
+    the diagnostics are (1,) zeros and ``loss_w`` is None."""
 
     round: int
     loss: float
@@ -111,33 +124,48 @@ class RoundRecord:
     loss_w: Optional[np.ndarray] = None
     round_ms: float = 0.0
     dispatch_ms: float = 0.0
+    # (k,) bool byzantine slots of the round (all False without them)
+    corrupt: Optional[np.ndarray] = None
 
 
 class ElasticSession:
     """Stateful runner for one run: trainer state + schedule + batcher + eval.
 
     ``params`` (optional, a nested tree of arrays in the reference layout)
-    seats every worker and the master, e.g. the reference's own init
-    carried across; ``probe_fn`` replaces the trainer's probe draws (see
-    ``ElasticTrainer.probe_fn``). ``run_iter()`` yields a
-    :class:`RoundRecord` per round; ``run()`` collects them.
+    seats every worker and the master (or the single worker of plain
+    mode), e.g. the reference's own init carried across; ``probe_fn`` and
+    ``noise_fn`` replace the probe and byzantine-noise draws (see
+    ``ElasticTrainer.probe_fn``; plain mode calls ``probe_fn(step, 0, 0)``).
+    ``run_iter()`` yields a :class:`RoundRecord` per round; ``run()``
+    collects them.
     """
 
     def __init__(self, spec: RunSpec, *, params=None,
-                 probe_fn: Optional[ProbeFn] = None):
+                 probe_fn: Optional[ProbeFn] = None,
+                 noise_fn: Optional[NoiseFn] = None):
         self.spec = spec
         self.device = resolve_device(spec.device)
         cfg = spec.model_cfg or get_config(spec.arch, smoke=spec.smoke)
         if cfg.family != "cnn":
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported to PyTorch yet")
+                f"LM training (model family {cfg.family!r}) is not ported "
+                "to PyTorch yet: the card's flash-attention kernel has no "
+                "backward")
         self.model_cfg = cfg
         self.model = PaperCNN(cfg)
-        ecfg = self.ecfg = spec.elastic
+        ecfg = spec.elastic
+        if spec.plain:
+            # the k=1 limit: one worker, no exchange, no failures
+            ecfg = dataclasses.replace(
+                ecfg, num_workers=1, capacity=0, tau=1, overlap_ratio=0.0,
+                failure_prob=0.0, placement="single",
+                membership_scenario="static", groups=1, global_period=1)
+        self.ecfg = ecfg
         self.capacity = ecfg.cap
         self.trainer = ElasticTrainer(self.model, spec.optimizer, ecfg,
                                       device=self.device, probe_fn=probe_fn,
-                                      seed=spec.seed)
+                                      noise_fn=noise_fn, seed=spec.seed)
+        self.layout = self.trainer.layout
         # -- data -----------------------------------------------------------
         ds = SyntheticImages(n=spec.n_data, n_test=spec.n_test,
                              seed=spec.data_seed)
@@ -145,6 +173,15 @@ class ElasticSession:
                                      batch_size=spec.batch_size,
                                      seed=spec.seed)
         self._test = self._to_device(ds.test_batch())
+        self.round = 0  # rounds completed so far
+        if spec.plain:
+            self.schedule = None
+            self.state = init_train_state(self.model, spec.optimizer, params,
+                                          seed=spec.seed, device=self.device)
+            self._step = make_train_step(
+                self.model, spec.optimizer, probe_fn=self.trainer.probe_fn,
+                device=self.device)
+            return
         # -- schedule -------------------------------------------------------
         if spec.schedule is not None:
             self.schedule = spec.schedule
@@ -153,14 +190,12 @@ class ElasticSession:
                      else spec.seed + 7)
             self.schedule = make_scenario(ecfg).schedule(
                 sseed, spec.rounds, self.capacity)
-        if (self.schedule.active is not None or self.schedule.has_corruption
-                or self.schedule.has_hetero):
+        if self.schedule.active is not None:
             raise NotImplementedError(
-                "schedules with active/corrupt/speed channels are not "
+                "schedules with an active (membership) channel are not "
                 "ported to PyTorch yet")
         self._failed_recent = self.schedule.failed_recent_all()
         self.state = self.trainer.init_state(params)
-        self.round = 0  # rounds completed so far
 
     def _to_device(self, batch):
         return {"images": torch.as_tensor(batch["images"]).to(self.device),
@@ -168,24 +203,86 @@ class ElasticSession:
                     self.device, torch.int64)}
 
     # -- eval ---------------------------------------------------------------
+    @property
+    def master_params(self) -> torch.Tensor:
+        """The authoritative flat (n,) parameters: the elastic master, or
+        the single worker's params in plain mode."""
+        return (self.state["params"] if self.spec.plain
+                else self.state["master"])
+
+    def master_tree(self):
+        """:attr:`master_params` as a nested tree of views in the
+        reference layout."""
+        flat = self.master_params
+        return tree_from_leaves(
+            (leaf.path, flat[leaf.offset:leaf.offset + leaf.size]
+             .view(leaf.shape)) for leaf in self.layout.leaves)
+
+    @torch.no_grad()
     def evaluate(self):
         """(held-out loss, accuracy) of the master params."""
-        return (float(self.trainer.master_loss(self.state, self._test)),
-                float(self.trainer.master_accuracy(self.state, self._test)))
+        params = self.layout.views(self.master_params)
+        return (float(self.model.loss(params, self._test)[0]),
+                float(self.model.accuracy(params, self._test)))
 
     def _is_eval_round(self, r: int) -> bool:
         e = self.spec.eval_every
         return e > 0 and (r % e == 0 or r == self.spec.rounds - 1)
 
+    # -- checkpoint ---------------------------------------------------------
+    def save(self, path: Optional[str] = None,
+             extra_metadata: Optional[dict] = None) -> str:
+        """Save the master params with the reference's metadata:
+        ``{"rounds", "arch", "scenario"}``, plus, for an elastic run, the
+        per-slot manifest (capacity, active mask, u-history) that
+        :meth:`restore` re-seats."""
+        path = path or self.spec.save_path
+        if not path:
+            raise ValueError("no save path: pass one or set RunSpec.save_path")
+        meta = {"rounds": self.round, "arch": self.model_cfg.name,
+                "scenario": ("none" if self.spec.plain
+                             else self.ecfg.failure_scenario)}
+        if not self.spec.plain:
+            meta["elastic"] = checkpoint.elastic_manifest(
+                np.ones(self.capacity, bool),
+                self.state["u_hist"].cpu().numpy())
+        meta.update(extra_metadata or {})
+        checkpoint.save(path, self.master_tree(), metadata=meta)
+        return path
+
+    def restore(self, path: str) -> dict:
+        """Warm-start this session from a checkpoint; returns its metadata.
+
+        Plain mode replaces the params and keeps the optimizer state. An
+        elastic run restores the master exactly and cold-starts every
+        worker from it with fresh optimizer state (worker params are not
+        checkpointed: a restore is a pool-wide rejoin); the saved live
+        slots' u-histories are re-seated in order
+        (``checkpoint.reseat_u_hist``). Raises on an architecture
+        mismatch."""
+        arch = checkpoint.read_metadata(path).get("arch")
+        if arch is not None and arch != self.model_cfg.name:
+            raise ValueError(
+                f"checkpoint {path!r} was saved from arch {arch!r}, this "
+                f"session runs {self.model_cfg.name!r}")
+        # the master lives (and was saved) in float32
+        like = tree_from_leaves(
+            (leaf.path, torch.empty(leaf.shape, dtype=torch.float32))
+            for leaf in self.layout.leaves)
+        tree, meta = checkpoint.restore(path, like=like)
+        if self.spec.plain:
+            self.state["params"].copy_(
+                self.layout.pack_tree(tree, device=self.device))
+            return meta
+        u_hist = checkpoint.reseat_u_hist(
+            meta.get("elastic"), self.capacity, np.ones(self.capacity, bool),
+            self.ecfg.score_window)
+        state = self.trainer.init_state(tree)
+        state["u_hist"] = torch.as_tensor(u_hist, device=self.device)
+        self.state = state
+        return meta
+
     # -- not ported yet -------------------------------------------------------
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints (ElasticSession.save) are not "
-                                  "ported to PyTorch yet")
-
-    def restore(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints (ElasticSession.restore) are "
-                                  "not ported to PyTorch yet")
-
     def apply(self, *args, **kwargs):
         raise NotImplementedError("closed-loop control (ElasticSession.apply)"
                                   " is not ported to PyTorch yet")
@@ -212,7 +309,9 @@ class ElasticSession:
                 batches=self._to_device(host_batches[i]), round=r,
                 fail=sched.fail[r], failed_recent=self._failed_recent[r],
                 straggle=sched.straggle[r] if sched.has_stragglers else None,
-                restart=sched.restart[r] if sched.has_restarts else None)
+                restart=sched.restart[r] if sched.has_restarts else None,
+                corrupt=sched.corrupt[r] if sched.has_corruption else None,
+                speed=sched.speed[r] if sched.has_hetero else None)
             metrics.append(self.trainer.round_step(self.state, inputs)[1])
         t1 = time.perf_counter()
         m = {key: torch.stack([mi[key] for mi in metrics]).cpu().numpy()
@@ -223,6 +322,7 @@ class ElasticSession:
         round_ms = (t2 - t0) * 1e3 / n
         dispatch_ms = (t1 - t0) * 1e3
         self.round = hi
+        no_corrupt = np.zeros(self.capacity, bool)
         records = []
         for i, r in enumerate(range(lo, hi)):
             ev_loss = ev_acc = None
@@ -234,7 +334,42 @@ class ElasticSession:
                 h1=m["h1"][i], h2=m["h2"][i],
                 fail=sched.fail[r], straggle=sched.straggle[r],
                 restart=sched.restart[r],
+                corrupt=(sched.corrupt[r] if sched.corrupt is not None
+                         else no_corrupt),
                 eval_loss=ev_loss, eval_acc=ev_acc, loss_w=m["loss_w"][i],
+                round_ms=round_ms, dispatch_ms=dispatch_ms))
+        return records
+
+    def _run_chunk_plain(self, n: int) -> List[RoundRecord]:
+        """``n`` single-worker steps (one per "round"), their losses read
+        back once."""
+        lo, hi = self.round, self.round + n
+        host_batches = [self.batcher.round_batches() for _ in range(n)]
+        t0 = time.perf_counter()
+        losses = []
+        for i, r in enumerate(range(lo, hi)):
+            # WorkerBatcher emits (τ=1, k=1, B, ...); drop the unit axes
+            batch = {key: val[0, 0] for key, val in
+                     self._to_device(host_batches[i]).items()}
+            losses.append(self._step(self.state, batch, r)[1]["loss"])
+        t1 = time.perf_counter()
+        loss = torch.stack(losses).cpu().numpy()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        round_ms = (t2 - t0) * 1e3 / n
+        dispatch_ms = (t1 - t0) * 1e3
+        self.round = hi
+        z, zb = np.zeros(1, np.float32), np.zeros(1, bool)
+        records = []
+        for i, r in enumerate(range(lo, hi)):
+            ev_loss = ev_acc = None
+            if r == hi - 1 and self._is_eval_round(r):
+                ev_loss, ev_acc = self.evaluate()
+            records.append(RoundRecord(
+                round=r, loss=float(loss[i]), u=z, score=z, h1=z, h2=z,
+                fail=zb, straggle=zb, restart=zb, corrupt=zb,
+                eval_loss=ev_loss, eval_acc=ev_acc,
                 round_ms=round_ms, dispatch_ms=dispatch_ms))
         return records
 
@@ -249,8 +384,12 @@ class ElasticSession:
             raise ValueError(
                 f"run would exceed RunSpec.rounds = {self.spec.rounds} "
                 f"(at round {self.round}, asked for {rounds} more)")
+        run_chunk = (self._run_chunk_plain if self.spec.plain
+                     else self._run_chunk)
         while self.round < end:
-            yield from self._run_chunk(self._next_chunk(end))
+            yield from run_chunk(self._next_chunk(end))
+        if self.round >= self.spec.rounds and self.spec.save_path:
+            self.save()
 
     def run(self, rounds: Optional[int] = None) -> List[RoundRecord]:
         return list(self.run_iter(rounds))

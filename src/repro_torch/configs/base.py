@@ -9,9 +9,9 @@ device of the tensors picks kernel or plain version. ``get_config``
 resolves the ported architectures and refuses every other by name.
 
 Configs are plain data: features the port does not run yet (membership,
-hierarchy, sharded placement, ``u_zclip``, the adversarial scenarios) are
-still valid *configurations*; the trainer and the session raise
-``NotImplementedError`` for them when asked to run one.
+hierarchy, sharded placement) are still valid *configurations*; the
+trainer and the session raise ``NotImplementedError`` for them when asked
+to run one.
 """
 from __future__ import annotations
 

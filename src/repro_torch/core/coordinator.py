@@ -28,11 +28,18 @@ the round's masks (numpy, from the schedule).
 
 The Hutchinson probes come through one seam, :attr:`ElasticTrainer.probe_fn`,
 called per (round, τ-step, worker); a parity test injects the reference's
-probes there.
+probes there. The byzantine ``noise`` draws come through a second seam of
+the same shape, :attr:`ElasticTrainer.noise_fn`.
+
+Adversarial channels (``RoundInputs.corrupt`` / ``speed``, the
+``byzantine`` and ``hetero`` scenarios): a corrupt slot's gradient is
+replaced every τ-step by ``ElasticConfig.byzantine_mode``'s poison before
+the optimizer reads it (the Hutchinson diagonal is left alone, as in the
+reference); a slot of speed s runs ``max(1, round(s·τ))`` local steps and
+freezes for the rest of the phase, in either comm mode.
 
 Out of this slice, each refused by name: membership/capacity, hierarchy,
-sharded placement, ``u_zclip``, the adversarial ``corrupt``/``speed``
-channels (hetero and byzantine scenarios).
+sharded placement.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from repro_torch.optim.hutchinson import hessian_diag_with_grad
 
 # (round, τ-step, worker) -> (hutchinson_samples, n) float32 ±1 probes
 ProbeFn = Callable[[int, int, int], torch.Tensor]
+# (round, τ-step, worker) -> (n,) float32 standard-normal byzantine noise
+NoiseFn = Callable[[int, int, int], torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -64,9 +73,10 @@ class RoundInputs:
 
     ``batches`` holds (τ, k, B, ...) tensors on the trainer's device
     (``images`` float32 NHWC, ``labels`` int64). ``round`` keys the probe
-    seam. The masks are host numpy (k,) bool rows of the schedule;
+    seam. The masks are host numpy (k,) rows of the schedule;
     ``straggle``/``restart`` stay ``None`` when the scenario never fires
-    them.
+    them, and so do the adversarial channels: ``corrupt`` (k,) bool
+    byzantine slots, ``speed`` (k,) float32 persistent speeds in (0, 1].
     """
 
     batches: Dict[str, torch.Tensor]
@@ -75,6 +85,15 @@ class RoundInputs:
     failed_recent: np.ndarray
     straggle: Optional[np.ndarray] = None
     restart: Optional[np.ndarray] = None
+    corrupt: Optional[np.ndarray] = None
+    speed: Optional[np.ndarray] = None
+
+
+def _reseed(gen: torch.Generator, *words: int) -> torch.Generator:
+    """Seed ``gen`` from a ``SeedSequence`` of ``words``, so a seam's
+    draws depend on its key, not on the order of the calls."""
+    hi, lo = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
+    return gen.manual_seed((int(hi) << 32) | int(lo))
 
 
 class RademacherProbes:
@@ -89,12 +108,28 @@ class RademacherProbes:
         self.gen = torch.Generator(self.device)
 
     def __call__(self, r: int, t: int, i: int) -> torch.Tensor:
-        hi, lo = np.random.SeedSequence(
-            [self.seed, r, t, i]).generate_state(2, np.uint32)
-        self.gen.manual_seed((int(hi) << 32) | int(lo))
-        z = torch.randint(0, 2, (self.samples, self.n), generator=self.gen,
+        z = torch.randint(0, 2, (self.samples, self.n),
+                          generator=_reseed(self.gen, self.seed, r, t, i),
                           device=self.device, dtype=torch.float32)
         return z.mul_(2.0).sub_(1.0)
+
+
+class GaussianNoise:
+    """The default byzantine-noise seam: (n,) float32 N(0, 1) draws from a
+    ``torch.Generator`` on the run's device, re-seeded per (seed, round,
+    τ-step, worker) apart from the probes' stream. Not the reference's
+    threefry bits — a parity test injects those instead."""
+
+    SALT = 0x6B7A  # the reference folds the same constant into its keys
+
+    def __init__(self, seed: int, n: int, device):
+        self.seed, self.n = seed, n
+        self.device = torch.device(device)
+        self.gen = torch.Generator(self.device)
+
+    def __call__(self, r: int, t: int, i: int) -> torch.Tensor:
+        return torch.randn(self.n, device=self.device, generator=_reseed(
+            self.gen, self.seed, self.SALT, r, t, i))
 
 
 def check_slice(ecfg: ElasticConfig) -> None:
@@ -106,11 +141,6 @@ def check_slice(ecfg: ElasticConfig) -> None:
         missing.append("hierarchical averaging (groups / global_period)")
     if ecfg.placement != "single":
         missing.append("sharded placement")
-    if ecfg.u_zclip:
-        missing.append("u_zclip")
-    if ecfg.failure_scenario in ("hetero", "byzantine"):
-        missing.append(f"the {ecfg.failure_scenario!r} scenario's "
-                       "speed/corrupt channels")
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + "; ".join(missing))
@@ -125,6 +155,8 @@ class ElasticTrainer:
     # The probe seam (see module docstring); None draws RademacherProbes
     # seeded with ``seed``.
     probe_fn: Optional[ProbeFn] = None
+    # The byzantine-noise seam; None draws GaussianNoise seeded with ``seed``.
+    noise_fn: Optional[NoiseFn] = None
     seed: int = 0
 
     def __post_init__(self):
@@ -136,6 +168,9 @@ class ElasticTrainer:
             self.probe_fn = RademacherProbes(
                 self.seed, self.layout.n, self.opt_cfg.hutchinson_samples,
                 self.device)
+        if self.noise_fn is None:
+            self.noise_fn = GaussianNoise(self.seed, self.layout.n,
+                                          self.device)
         self._c = dw.score_coefficients(self.ecfg.score_weights,
                                         self.ecfg.score_window, self.device)
 
@@ -205,16 +240,36 @@ class ElasticTrainer:
         for i in np.flatnonzero(restart):
             state["workers"][i].copy_(state["master"])
 
+    # -- byzantine gradient corruption ----------------------------------------------
+    def corrupt_grads(self, grads: torch.Tensor, corrupt: np.ndarray, r: int,
+                      t: int) -> None:
+        """Replace, in place, the (k, n) gradient rows of the corrupt slots
+        by the adversarial gradient of ``ecfg.byzantine_mode``
+        (``repro.core.coordinator.ElasticTrainer._poison``): ``sign_flip``
+        ascends the loss, ``scale`` overshoots by ``byzantine_scale``×,
+        ``noise`` adds ``byzantine_scale``·N(0, 1) drawn through
+        :attr:`noise_fn` for (round, τ-step, worker)."""
+        mode, c = self.ecfg.byzantine_mode, self.ecfg.byzantine_scale
+        for i in np.flatnonzero(corrupt):
+            g = grads[i]
+            if mode == "sign_flip":
+                g.neg_()
+            elif mode == "scale":
+                g.mul_(c)
+            else:
+                g.add_(c * self.noise_fn(r, t, int(i)))
+
     # -- local phase ------------------------------------------------------------
     def _loss(self, params, images, labels):
         return self.model.loss(params, {"images": images,
                                         "labels": labels})[0]
 
-    def _fused_local_step(self, state, batch, r: int, t: int):
+    def _fused_local_step(self, state, batch, r: int, t: int, corrupt=None):
         """One AdaHessian τ-step for all k workers: gradients and Hutchinson
         diagonals from one vmapped ``jvp(grad)``, the diagonal spatially
         averaged per leaf, both packed into (k, n) with one ``torch.cat``
-        each, then one batched update in place."""
+        each (the corrupt slots' gradients poisoned), then one batched
+        update in place."""
         k, lay = self.ecfg.cap, self.layout
         z = torch.stack([self.probe_fn(r, t, i) for i in range(k)])
         probes = [lay.views(z[:, s]) for s in range(z.shape[1])]
@@ -224,11 +279,13 @@ class ElasticTrainer:
         block = self.opt_cfg.spatial_block
         hs = {name: spatial_average(d, block, batch_dims=1)
               for name, d in diag.items()}
-        self.opt.step(state["workers"], lay.pack(grads, (k,)), state["opt"],
-                      lay.pack(hs, (k,)))
+        g = lay.pack(grads, (k,))
+        if corrupt is not None:
+            self.corrupt_grads(g, corrupt, r, t)
+        self.opt.step(state["workers"], g, state["opt"], lay.pack(hs, (k,)))
         return loss
 
-    def _plain_local_step(self, state, batch):
+    def _plain_local_step(self, state, batch, r: int, t: int, corrupt=None):
         k, lay = self.ecfg.cap, self.layout
 
         def loss_and_value(p, images, labels):
@@ -237,36 +294,48 @@ class ElasticTrainer:
 
         grads, loss = vmap(grad(loss_and_value, has_aux=True))(
             lay.views(state["workers"]), batch["images"], batch["labels"])
-        self.opt.step(state["workers"], lay.pack(grads, (k,)), state["opt"])
+        g = lay.pack(grads, (k,))
+        if corrupt is not None:
+            self.corrupt_grads(g, corrupt, r, t)
+        self.opt.step(state["workers"], g, state["opt"])
         return loss
 
     def local_phase(self, state, batches, r: int,
-                    straggle: Optional[np.ndarray] = None):
+                    straggle: Optional[np.ndarray] = None,
+                    corrupt: Optional[np.ndarray] = None,
+                    speed: Optional[np.ndarray] = None):
         """τ local steps per worker, in place. ``straggle`` (k,) bool:
         straggling workers complete only the first
-        ``max(1, round(straggler_tau_scale·τ))`` steps; their params and
-        optimizer state are restored after each later step (the reference
-        computes and discards those steps the same way).
+        ``max(1, round(straggler_tau_scale·τ))`` steps; ``speed`` (k,)
+        float32: slot i completes only the first ``max(1, round(speed_i·τ))``
+        steps (rounded half to even in float32, as ``jnp.round``); the two
+        compose. Past its budget a slot's params and optimizer state are
+        restored after each step (the reference computes and discards
+        those steps the same way). ``corrupt`` (k,) bool: those slots'
+        gradients are poisoned every step (:meth:`corrupt_grads`).
 
         Returns ``(mean_loss, loss_w)``: the mean over live (worker, step)
         losses, and the (k,) per-worker mean over its live steps."""
         k = self.ecfg.cap
         tau = batches["images"].shape[0]
         tau_eff = max(1, round(self.ecfg.straggler_tau_scale * tau))
+        speed_steps = (None if speed is None else np.maximum(
+            1, np.round(np.asarray(speed, np.float32) * np.float32(tau))))
         step_sums, loss_w = [], 0
         live_steps = np.zeros(k, np.int64)
         for t in range(tau):
             live = (np.ones(k, bool) if straggle is None
                     else ~straggle | (t < tau_eff))
+            if speed_steps is not None:
+                live = live & (t < speed_steps)
             frozen = torch.as_tensor(np.flatnonzero(~live),
                                      device=self.device)
             tensors = [state["workers"], *state["opt"].values()]
             saved = [x[frozen] for x in tensors] if len(frozen) else []
             batch = {key: val[t] for key, val in batches.items()}
-            if self.opt.needs_hessian:
-                loss = self._fused_local_step(state, batch, r, t)
-            else:
-                loss = self._plain_local_step(state, batch)
+            step = (self._fused_local_step if self.opt.needs_hessian
+                    else self._plain_local_step)
+            loss = step(state, batch, r, t, corrupt)
             for x, old in zip(tensors, saved):
                 x[frozen] = old
             if len(frozen):
@@ -371,18 +440,10 @@ class ElasticTrainer:
         if inputs.restart is not None:
             self.apply_restarts(state, inputs.restart)
         loss, loss_w = self.local_phase(state, inputs.batches, inputs.round,
-                                        inputs.straggle)
+                                        inputs.straggle, inputs.corrupt,
+                                        inputs.speed)
         metrics = self.comm_phase(state, inputs.fail, inputs.failed_recent,
                                   inputs.straggle)
         metrics["loss"] = loss
         metrics["loss_w"] = loss_w
         return state, metrics
-
-    # -- eval ----------------------------------------------------------------------
-    @torch.no_grad()
-    def master_accuracy(self, state, batch):
-        return self.model.accuracy(self.layout.views(state["master"]), batch)
-
-    @torch.no_grad()
-    def master_loss(self, state, batch):
-        return self.model.loss(self.layout.views(state["master"]), batch)[0]

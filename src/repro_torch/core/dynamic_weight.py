@@ -16,7 +16,10 @@ master model, then piece-wise-linear maps h1/h2 replacing EASGD's fixed α:
 
 with threshold k < 0. Worker update uses h1, master update uses h2
 (eqs. 12–13). ``ElasticConfig.score_clip > 0`` zeroes h2 for scores above
-+score_clip (beyond-paper robustness clamp; 0 keeps the paper's maps).
++score_clip (beyond-paper robustness clamp; 0 keeps the paper's maps), and
+``ElasticConfig.u_zclip > 0`` zeroes it for a worker whose u sits more than
+u_zclip robust z-scores above the pool (:func:`robust_zscore`; batched
+scoring only, as in the reference).
 
 Every quantity stays on the buffers' device: the comm phase reads nothing
 back to the host. The expressions follow ``repro.core.dynamic_weight``.
@@ -87,9 +90,47 @@ def master_schedule_weights(w2: torch.Tensor) -> torch.Tensor:
     return w2 * excl.flip(0)
 
 
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian`` of a 1-D tensor, on its device: NaN entries are
+    ignored, and an even count of the rest gives 0.5·lo + 0.5·hi of the
+    two middle values, in the reference's order (``jnp.nanquantile``,
+    linear method; ``torch.nanquantile`` interpolates as lo + w·(hi − lo),
+    which can differ in the last bit)."""
+    s = torch.sort(x).values  # NaN sorts last
+    count = (~torch.isnan(x)).sum().to(torch.float32)
+    q = 0.5 * (count - 1.0)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo
+    w_lo = 1.0 - w_hi
+    top = (count - 1.0).clamp_min(0.0)
+    lo = torch.minimum(lo, top).clamp_min(0.0).long()
+    hi = torch.minimum(hi, top).clamp_min(0.0).long()
+    return s[lo] * w_lo + s[hi] * w_hi
+
+
+def robust_zscore(u: torch.Tensor, live: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Robust z-score of each u against the live pool's u distribution:
+    (u − median) / (1.4826·MAD + 1e-6), median and MAD over live, non-NaN
+    entries (``repro.core.dynamic_weight.robust_zscore``). A NaN u gets a
+    NaN z, which the clamp in :func:`weights_for` refuses."""
+    u = u.to(torch.float32)
+    masked = u if live is None else torch.where(live, u, float("nan"))
+    med = _nanmedian(masked)
+    mad = _nanmedian(torch.abs(masked - med))
+    return (u - med) / (1.4826 * mad + 1e-6)
+
+
 def weights_for(cfg: ElasticConfig, a: torch.Tensor, *,
-                failed_recently: Optional[torch.Tensor] = None):
-    """(h1, h2) for a raw score; supports fixed-α and oracle modes."""
+                failed_recently: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None):
+    """(h1, h2) for a raw score; supports fixed-α and oracle modes.
+
+    Dynamic mode applies the two robustness clamps on w2: ``score_clip``
+    (a score above it, or a non-finite one, is refused) and, when the (k,)
+    log-distances ``u`` of the whole pool are given, ``u_zclip`` (a worker
+    more than u_zclip robust z-scores above the pool is refused; a NaN z
+    is refused too). The sequential scan passes no ``u``."""
     if cfg.oracle:
         assert failed_recently is not None
         return (torch.where(failed_recently, 1.0, cfg.alpha),
@@ -102,6 +143,8 @@ def weights_for(cfg: ElasticConfig, a: torch.Tensor, *,
     if cfg.score_clip > 0:
         # `a <= clip keeps w2`, so a non-finite score is refused too
         w2 = torch.where(a <= cfg.score_clip, w2, 0.0)
+    if cfg.u_zclip > 0 and u is not None:
+        w2 = torch.where(robust_zscore(u) <= cfg.u_zclip, w2, 0.0)
     return w1, w2
 
 
@@ -113,12 +156,13 @@ def comm_scores_batched(cfg: ElasticConfig, workers: torch.Tensor,
     """Fused-mode scoring for all k workers against one master snapshot:
     ``(u, hist_new, a, w1, w2)``, each with a leading (k,) axis.
     ``straggle`` (k,) bool + ``stale_master``: straggling workers measure
-    their distance against the stale snapshot instead."""
+    their distance against the stale snapshot instead. With
+    ``cfg.u_zclip > 0`` the pool's u feed the absolute-distance clamp."""
     u = log_distance(workers, master, layout)
     if straggle is not None and stale_master is not None:
         u = torch.where(straggle, log_distance(workers, stale_master, layout),
                         u)
     hist_new = push_history(u_hist, u)
     a = raw_score(hist_new, c)
-    w1, w2 = weights_for(cfg, a, failed_recently=failed_recently)
+    w1, w2 = weights_for(cfg, a, failed_recently=failed_recently, u=u)
     return u, hist_new, a, w1, w2

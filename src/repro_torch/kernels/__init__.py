@@ -12,7 +12,8 @@ def kernels() -> Dict[str, CudaKernel]:
     from repro_torch.kernels.elastic import ops as ela
     from repro_torch.kernels.flash_attention import ops as fla
 
-    return {k.name: k for k in (ada.KERNEL, ela.BATCHED_KERNEL, ela.KERNEL,
+    return {k.name: k for k in (ada.KERNEL, ada.FLAT_KERNEL,
+                                ela.BATCHED_KERNEL, ela.KERNEL,
                                 fla.KERNEL)}
 
 

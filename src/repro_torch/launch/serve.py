@@ -11,7 +11,8 @@ The port of ``repro.launch.serve``, with the same flags plus ``--device``
   reporting req/s, tok/s, time to first token and latency p50/p99.
 
 Weights are drawn from a seed on the serving device (``--seed``);
-``--restore`` and ``--watch`` need the port's checkpoint slice and raise.
+``--restore`` and ``--watch`` need checkpoint hot-swap
+(``serving/hotswap.py``), which is not ported yet, and raise.
 
     python -m repro_torch.launch.serve --arch qwen3-4b --full --traffic 16 \\
         --prompt-len 512 --steps 64
@@ -131,9 +132,9 @@ def main(argv=None):
     for flag in ("restore", "watch"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} needs checkpoints, which are not ported to "
-                "PyTorch yet (checkpoint/checkpoint.py and "
-                "serving/hotswap.py wait for the checkpoint slice)")
+                f"--{flag} needs checkpoint hot-swap into the serving "
+                "engines (serving/hotswap.py), which is not ported to "
+                "PyTorch yet")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -33,10 +33,8 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
         return firstorder.sgd(cfg)
     if cfg.name == "momentum":
         return firstorder.momentum(cfg)
+    if cfg.name == "adam":
+        return firstorder.adam(cfg)
     if cfg.name == "adahessian":
         return adahessian.adahessian(cfg)
-    if cfg.name == "adam":
-        raise NotImplementedError(
-            "optimizer 'adam' is not ported to PyTorch yet (no §VI method "
-            "uses it)")
     raise ValueError(f"unknown optimizer {cfg.name!r}")

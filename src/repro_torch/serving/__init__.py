@@ -8,8 +8,8 @@
 - :func:`~repro_torch.serving.traffic.synthetic_traffic` — bursty MMPP
   traces.
 
-The reference's checkpoint hot-swap (``serving/hotswap.py``) waits for the
-port's checkpoint slice.
+The reference's checkpoint hot-swap (``serving/hotswap.py``) is not ported
+yet; the checkpoints it would read are (``repro_torch.checkpoint``).
 """
 from repro_torch.serving.continuous import ContinuousEngine, FinishedRequest
 from repro_torch.serving.engine import ServeEngine

@@ -56,6 +56,7 @@ def test_entry_points_default_to_the_card():
     machine without a card that raises instead of running on the CPU."""
     from repro_torch.api.session import ElasticSession, RunSpec
     from repro_torch.experiments.paper_repro import run_one
+    from repro_torch.launch import train
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
@@ -63,6 +64,9 @@ def test_entry_points_default_to_the_card():
         ElasticSession(RunSpec(rounds=1, n_data=64, n_test=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_one("DEAHES-O", 2, 1, rounds=1, n_data=64, n_test=8)
+    for argv in (["--rounds", "1"], ["--plain", "--rounds", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(argv)
 
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
@@ -109,3 +113,26 @@ def test_flash_cuda_tensors_never_take_the_plain_path(monkeypatch):
     q, kv = torch.zeros(1, 128, 4, 64), torch.zeros(1, 128, 2, 64)
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.flash_attention_bshd(q, kv, kv)
+
+
+def test_flat_adahessian_cuda_tensors_never_take_the_plain_path(monkeypatch):
+    """The single-worker AdaHessian wrapper too: a tensor that claims to be
+    on CUDA goes to the kernel, whose failed build raises."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.adahessian import ops
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "library_path",
+                        lambda src: ROOT / "build" / "absent" / "x.so")
+    monkeypatch.setattr(ops.FLAT_KERNEL, "_fn", None)
+    monkeypatch.setattr(ops, "check_f32", lambda *a: torch.device("cuda"))
+    monkeypatch.setattr(ops, "adahessian_step_plain", plain)
+    x = torch.zeros(5)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.adahessian_step(x, x, x, x, x, torch.zeros(7))

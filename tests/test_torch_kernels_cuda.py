@@ -1,6 +1,7 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card, with the reference's tolerances: the elastic-training kernels at the
-paper CNN's parameter count (AdaHessian step rtol 2e-5, atol 2e-6; batched
+paper CNN's parameter count (AdaHessian steps, batched and single-worker,
+rtol 2e-5, atol 2e-6; batched
 elastic exchange rtol 1e-5, atol 1e-6; one-worker exchange 1e-6), flash
 attention over the CPU tests' sweep plus qwen3-4b's prefill shape (2e-5
 in float32, 2e-2 in bfloat16). Marked ``cuda``: without a card
@@ -11,6 +12,7 @@ every test skips. Imports no JAX, so it runs on the machine with the card:
 import pytest
 import torch
 
+from repro_torch.configs.base import OptimizerConfig
 from repro_torch.kernels import kernels, reset_launch_counts
 from repro_torch.kernels.adahessian import ops as tada
 from repro_torch.kernels.elastic import ops as tela
@@ -47,6 +49,28 @@ def test_adahessian_kernel_matches_plain(cuda, k, power):
     torch.cuda.synchronize()
     assert kernels()["adahessian_update_batched"].launches == 1
     tada.adahessian_update_batched_plain(p, g, h, m, v, bc, **kw)
+    for got, want in zip(outs, (p, m, v)):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [N_CARD, 1001])
+@pytest.mark.parametrize("t,power", [(1, 1.0), (3, 1.0), (3, 0.5)])
+def test_adahessian_flat_kernel_matches_plain(cuda, n, t, power):
+    """The single-worker step of the plain control, at the paper CNN's n
+    and an odd n, against its plain version."""
+    gen = torch.Generator(cuda).manual_seed(n + t)
+    r = lambda s=1.0: s * torch.randn(n, generator=gen, device=cuda)
+    p, g, h, m = r(), r(), r(), r(0.1)
+    v = r(0.1).abs()
+    cfg = OptimizerConfig(lr=1e-3, hessian_power=power)
+    scalars = tada.pack_scalars(cfg, torch.tensor(t, device=cuda))
+    outs = [x.clone() for x in (p, m, v)]
+    reset_launch_counts()
+    tada.adahessian_step(outs[0], g, h, outs[1], outs[2], scalars)
+    torch.cuda.synchronize()
+    assert kernels()["adahessian_update_flat"].launches == 1
+    tada.adahessian_step_plain(p, g, h, m, v, scalars)
     for got, want in zip(outs, (p, m, v)):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
 

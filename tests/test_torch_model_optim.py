@@ -144,14 +144,14 @@ def test_hutchinson_with_injected_probes_matches(models):
 
 @pytest.mark.parametrize("name,wd", [("sgd", 0.0), ("momentum", 0.0),
                                      ("adahessian", 0.0),
-                                     ("adahessian", 1e-4)])
+                                     ("adahessian", 1e-4), ("adam", 0.0)])
 def test_optimizer_steps_match(models, name, wd):
     """Three steps of each optimizer from the same params and gradients;
     AdaHessian at the reference kernel tolerance (rtol 2e-5, atol 2e-6)."""
     rm, tm, params = models
     kw = dict(name=name, lr=0.01, momentum=0.5, weight_decay=wd)
     rcfg, tcfg = ROpt(**kw), TOpt(**kw)
-    ropt = {"sgd": rfo.sgd, "momentum": rfo.momentum,
+    ropt = {"sgd": rfo.sgd, "momentum": rfo.momentum, "adam": rfo.adam,
             "adahessian": rada.adahessian}[name](rcfg)
     lay = FlatLayout(tm.spec)
     topt = make_optimizer(tcfg)

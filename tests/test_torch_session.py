@@ -53,14 +53,31 @@ from repro.models.cnn import PaperCNN as RCNN
 from repro.nn.param import init_tree as rinit_tree
 from repro.optim.hutchinson import rademacher_like
 from repro_torch.api.session import ElasticSession, RunSpec
+from repro_torch.checkpoint import checkpoint as tck
 from repro_torch.configs.base import ElasticConfig as TElastic
 from repro_torch.configs.base import OptimizerConfig as TOpt
 from repro_torch.configs.base import get_config as tget
 from repro_torch.core.coordinator import ElasticTrainer as TTrainer
 from repro_torch.core.coordinator import RoundInputs as TInputs
+from repro_torch.core.scenarios import ScenarioSchedule
 from repro_torch.experiments import paper_repro as tpaper
 from repro_torch.models.cnn import PaperCNN as TCNN
 from repro_torch.nn.param import init_tree, tree_leaves
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op torch thread for the test. The suite runs six xdist
+    workers on the CPU's cores; torch's default of one thread per core in
+    each of them oversubscribes the cores, and a small torch workload then
+    runs many times slower than alone (measured: 5 s alone, 125 s in the
+    six-worker run, for ``test_session_runs_the_features_this_slice_ported``).
+    Results do not depend on it beyond float reassociation, which every
+    comparison across packages tolerates."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 RTOL, ATOL = 1e-4, 1e-5            # diagnostics and u-history
 NORM_RTOL, ELEM_ATOL_FRAC = 1e-3, 2e-2  # state, per leaf
@@ -306,13 +323,31 @@ def test_session_refuses_unported_features_by_name():
         ElasticSession(_spec(elastic=dict(capacity=4)))
     with pytest.raises(NotImplementedError, match="hierarchical"):
         ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
-    with pytest.raises(NotImplementedError, match="byzantine"):
-        ElasticSession(_spec(elastic=dict(failure_scenario="byzantine")))
-    with pytest.raises(NotImplementedError, match="save_path"):
-        _spec(save_path="/nonexistent")
-    with pytest.raises(NotImplementedError, match="plain"):
-        _spec(plain=True)
+    with pytest.raises(NotImplementedError, match="controller"):
+        _spec(controller="rules")
+    with pytest.raises(NotImplementedError, match="detector_blind"):
+        _spec(detector_blind=True)
+    z = np.zeros((3, 3), bool)
+    with pytest.raises(NotImplementedError, match="membership"):
+        ElasticSession(_spec(schedule=ScenarioSchedule(z, z, z, active=~z)))
     sess = ElasticSession(_spec())
-    with pytest.raises(NotImplementedError, match="save"):
-        sess.save()
+    with pytest.raises(NotImplementedError, match="apply"):
+        sess.apply(None)
     assert [n for n, _ in tree_leaves(sess.model.spec)][0] == ("conv1", "b")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_session_runs_the_features_this_slice_ported(tmp_path):
+    """What the refusals above used to cover now runs: the byzantine and
+    hetero channels, plain mode, ``save`` and ``RunSpec.save_path``
+    (their parity with the reference: tests/test_torch_adversarial*.py,
+    tests/test_torch_plain.py, tests/test_torch_checkpoint.py)."""
+    for scenario in ("byzantine", "hetero"):
+        sess = ElasticSession(_spec(elastic=dict(
+            failure_scenario=scenario, byzantine_frac=0.5)))
+        assert all(np.isfinite(r.loss) for r in sess.run())
+        assert sess.save(str(tmp_path / scenario)) == str(tmp_path / scenario)
+    path = str(tmp_path / "plain")
+    sess = ElasticSession(_spec(plain=True, save_path=path))
+    assert [r.round for r in sess.run()] == [0, 1, 2]
+    assert tck.read_metadata(path)["scenario"] == "none"

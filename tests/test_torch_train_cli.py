@@ -1,0 +1,103 @@
+"""The port's training CLI (``repro_torch.launch.train``) on ``--device
+cpu``: its per-round lines in the reference CLI's format, ``--save`` read
+back by a session restore, ``--dump-trace`` / ``--trace`` replay, the
+adversarial scenarios' extra fields, and the refusal by name of every flag
+whose slice is not ported yet."""
+import dataclasses
+import re
+
+import pytest
+import torch
+
+from repro.launch import train as rtrain
+from repro_torch.api.session import ElasticSession
+from repro_torch.checkpoint import checkpoint as tck
+from repro_torch.launch import train as ttrain
+from test_torch_session import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+# byzantine at 4 workers, seed 0: slot 3 corrupt (asserted below)
+BYZANTINE = ["--rounds", "2", "--workers", "4", "--batch-size", "4",
+             "--failure-scenario", "byzantine", "--byzantine-frac", "0.5"]
+NUMBER = re.compile(r"-?\d+(\.\d+)?(e[-+]?\d+)?")
+
+
+def _shape(text):
+    """Each output line with every number replaced by ``#``."""
+    return [NUMBER.sub("#", line) for line in text.strip().splitlines()]
+
+
+def test_round_lines_follow_the_reference_format(capsys):
+    rtrain.main(BYZANTINE)
+    want = capsys.readouterr().out
+    sess, records = ttrain.main(BYZANTINE + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _shape(got) == _shape(want)
+    assert [r.corrupt.tolist() for r in records] == [[False, False, False,
+                                                      True]] * 2
+    assert "corrupt=[0, 0, 0, 1]" in got and got.count("round ") == 2
+    assert re.search(r"\[train\] final master l2=\d\.\d{10}e\+\d\d", got)
+    assert sess.round == 2 and all(torch.isfinite(torch.tensor(
+        [r.loss for r in records])))
+
+
+def test_plain_mode_prints_steps(capsys):
+    sess, records = ttrain.main(["--device", "cpu", "--plain", "--rounds",
+                                 "3", "--batch-size", "4", "--optimizer",
+                                 "adam", "--lr", "1e-4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [re.fullmatch(r"step (\d+): loss=\d+\.\d{4}", line).group(1)
+            for line in lines[:3]] == ["0", "1", "2"]
+    assert lines[3].startswith("[train] final master l2=")
+    assert sess.spec.plain and len(records) == 3
+
+
+def test_save_then_restore_and_trace_replay(tmp_path, capsys):
+    """``--save`` writes the master at the end of the run; a session
+    restore reads it back bit for bit. ``--dump-trace`` records the
+    schedule, and ``--trace`` replays it to the same run."""
+    ck, trace = str(tmp_path / "ck"), str(tmp_path / "run.jsonl")
+    args = ["--device", "cpu", "--rounds", "2", "--workers", "4",
+            "--batch-size", "4", "--failure-scenario", "hetero", "--tau",
+            "2"]
+    sess, _ = ttrain.main(args + ["--save", ck, "--dump-trace", trace])
+    out = capsys.readouterr().out
+    # lognormal speeds of scenario seed 7: slots 2 and 3 slow
+    assert "[train] persistent slot speeds: [1.0, 1.0, 0.84" in out
+    assert f"saved master params to {ck}" in out
+    assert tck.read_metadata(ck)["scenario"] == "hetero"
+    warm = ElasticSession(dataclasses.replace(sess.spec, save_path=None))
+    warm.restore(ck)
+    assert torch.equal(warm.state["master"], sess.state["master"])
+    replay, _ = ttrain.main(args[:4] + ["--batch-size", "4", "--tau", "2",
+                                        "--trace", trace, "--rounds", "5"])
+    assert "coercing rounds/capacity to the recorded (2, 4)" in \
+        capsys.readouterr().out
+    assert torch.equal(replay.state["master"], sess.state["master"])
+
+
+@pytest.mark.parametrize("flags,slice_name", [
+    (["--capacity", "6"], "membership"),
+    (["--membership-scenario", "scale_up"], "membership"),
+    (["--membership-k", "2"], "membership"),
+    (["--membership-round", "3"], "membership"),
+    (["--membership-plan", "2:2"], "membership"),
+    (["--controller", "rules"], "closed-loop control"),
+    (["--detector-blind"], "closed-loop control"),
+    (["--placement", "sharded", "--comm-mode", "fused"], "placement"),
+    (["--groups", "2", "--comm-mode", "fused"], "hierarchical"),
+    (["--global-period", "2", "--comm-mode", "fused"], "hierarchical"),
+    (["--coordinator-address", "localhost:1234"], "multi-process"),
+    (["--num-processes", "2"], "multi-process"),
+    (["--process-id", "1"], "multi-process")])
+def test_unported_flags_are_refused_by_name(flags, slice_name):
+    with pytest.raises(NotImplementedError,
+                       match=f"{flags[0]} belongs to .*{slice_name}"):
+        ttrain.main(["--device", "cpu", "--rounds", "1"] + flags)
+
+
+def test_lm_training_is_refused_by_name():
+    with pytest.raises(NotImplementedError, match="LM training"):
+        ttrain.main(["--device", "cpu", "--arch", "qwen3-4b", "--smoke",
+                     "--rounds", "1"])
