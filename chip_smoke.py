@@ -9,11 +9,13 @@ failure:
 
 1. environment: torch, CUDA, and the card's name and power limit;
 2. build: nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
-   all sources at once;
+   all sources at once; the flash-attention library's SASS must hold
+   HGMMA (tensor-core) instructions, counted with ``cuobjdump``;
 3. kernels: each CUDA kernel at its path's shapes (the elastic kernels
-   at k=8 workers, n=1,199,882 parameters; the single-worker AdaHessian
-   step at that n and at an odd n; flash attention over the CPU tests'
-   sweep and qwen3-4b's prefill, in float32 and bfloat16) against its
+   at k=8 workers, n=1,199,882 parameters, the batched exchange and the
+   single-worker AdaHessian step also at an odd n; flash attention over
+   the CPU tests' sweep and qwen3-4b's prefill, in float32 (CUDA cores)
+   and bfloat16 (tensor cores)) against its
    plain PyTorch version on the same inputs, at the reference's
    tolerances, then timed with CUDA events (median of 30 after warm-up)
    beside the plain version, the card's bound and, for flash attention,
@@ -31,7 +33,10 @@ failure:
    master read back bit for bit, then a 2-round warm start from it),
    ``--plain`` for 50 steps (50 launches of the single-worker AdaHessian
    kernel, none of the batched one), and 4 rounds each of the byzantine
-   (noise, ``--score-clip 3``), hetero (τ=4) and ``--u-zclip 3`` runs;
+   (noise, ``--score-clip 3`` and ``--score-clip 4``: live corrupt slots
+   refused in every round, and at clip 4 every live honest slot accepted
+   once the scores have warmed up), hetero (τ=4) and ``--u-zclip 3``
+   runs;
 5c. plain devices: three plain-mode steps on the card and on the CPU
    from the same carried params and probes; params agree per leaf;
 6. serving path: qwen3-4b at full width (4,022,468,096 bf16 params drawn
@@ -74,7 +79,7 @@ CARDS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
 # qwen3-4b's prefill in the continuous engine: B, H, KVH, S, D
 SERVE_SHAPE = (1, 32, 8, 512, 128)
 FLASH_SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
-               (1, 4, 2, 256, 128), SERVE_SHAPE]
+               (1, 4, 2, 256, 128), (1, 8, 2, 512, 64), SERVE_SHAPE]
 SECTION_VI_KERNELS = ("adahessian_update_batched", "elastic_update_batched",
                       "elastic_update")
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
@@ -94,11 +99,15 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def card_rates(name: str):
-    for key, rates in CARDS.items():
-        if key in name:
-            return key, rates
-    raise RuntimeError(f"no memory/FLOP rates on record for {name!r}")
+def hgmma_count(path) -> int:
+    """HGMMA (warpgroup tensor-core) instructions in a library's SASS, as
+    ``cuobjdump -sass <lib> | grep -c HGMMA`` counts them."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def median_ms(torch, fn, reps: int = 30, warm: int = 5,
@@ -123,6 +132,13 @@ def median_ms(torch, fn, reps: int = 30, warm: int = 5,
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def card_rates(name: str):
+    for key, rates in CARDS.items():
+        if key in name:
+            return key, rates
+    raise RuntimeError(f"no memory/FLOP rates on record for {name!r}")
 
 
 def check_kernels(torch, rates):
@@ -170,34 +186,44 @@ def check_kernels(torch, rates):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     del p, g, h, m, v, kp, km, kv
-    # -- K2: elastic batched exchange, stale off and on ----------------------
-    w, mm, ref = rnd(K, N), rnd(N), rnd(N)
+    # -- K2: elastic batched exchange, stale off and on, at the paper CNN's
+    #    n (rows alternately 16- and 8-byte aligned) and at an odd n (rows
+    #    4-byte aligned); timed at both; K3 below reuses the path's n ----
     hw = torch.rand(2, K, generator=gen, device=dev) * 0.3
     entry = {"name": ela.BATCHED_KERNEL.name, "route": "cuda",
              "source": "src/repro_torch/csrc/elastic.cu",
              "replaces": "src/repro/kernels/elastic/kernel.py:107",
-             "library_ms": None}
-    for stale in (False, True):
-        r = ref if stale else None
-        kw_, km_ = w.clone(), mm.clone()
-        ela.elastic_update_batched(kw_, km_, hw, r)
-        pw, pm = w.clone(), mm.clone()
-        ela.elastic_update_batched_plain(pw, pm, hw, r)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(kw_, pw, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(km_, pm, rtol=1e-5, atol=1e-6)
-        err = max(max_err(kw_, pw), max_err(km_, pm))
-        ms = median_ms(torch, lambda: ela.elastic_update_batched(
-            kw_, km_, hw, r))
-        plain_ms = median_ms(torch, lambda: ela.elastic_update_batched_plain(
-            pw, pm, hw, r))
-        b_ms, b_by = bound((2 * K + 2 + stale) * 4 * N + 8 * K,
-                           (5 * K + 1) * N)
-        tag = "stale_" if stale else ""
-        entry.update({f"{tag}max_abs_err": err, f"{tag}ms": ms,
-                      f"{tag}plain_ms": plain_ms, f"{tag}bound_ms": b_ms})
-        entry.setdefault("bound_by", b_by)
-        del kw_, km_, pw, pm
+             "library_ms": None, "odd_n": N_ODD}
+    for n in (N_ODD, N):
+        w, mm, ref = rnd(K, n), rnd(n), rnd(n)
+        for stale in (False, True):
+            r = ref if stale else None
+            kw_, km_ = w.clone(), mm.clone()
+            ela.elastic_update_batched(kw_, km_, hw, r)
+            pw, pm = w.clone(), mm.clone()
+            ela.elastic_update_batched_plain(pw, pm, hw, r)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(kw_, pw, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(km_, pm, rtol=1e-5, atol=1e-6)
+            err = max(max_err(kw_, pw), max_err(km_, pm))
+            ms = median_ms(torch, lambda: ela.elastic_update_batched(
+                kw_, km_, hw, r))
+            plain_ms = median_ms(
+                torch, lambda: ela.elastic_update_batched_plain(pw, pm, hw, r))
+            b_ms, b_by = bound((2 * K + 2 + stale) * 4 * n + 8 * K,
+                               (5 * K + 1) * n)
+            tag = ("stale_" if stale else "") + ("odd_" if n == N_ODD else "")
+            entry.update({f"{tag}max_abs_err": err, f"{tag}ms": ms,
+                          f"{tag}plain_ms": plain_ms, f"{tag}bound_ms": b_ms})
+            entry.setdefault("bound_by", b_by)
+            del kw_, km_, pw, pm
+    # the same bytes as one device-to-device copy of (k+1, n) floats (read
+    # once, written once): what the card's memory gives a plain stream,
+    # beside the byte bound; timed only
+    src = torch.cat([w, mm[None]])
+    dst = torch.empty_like(src)
+    entry["copy_ms"] = median_ms(torch, lambda: dst.copy_(src))
+    del src, dst
     out.append(entry)
     # -- K3: one worker's exchange, rotating over the k worker rows as the
     #    sequential scan does (a row is 4.8 MB: the master stays in L2) --
@@ -262,13 +288,17 @@ def check_kernels(torch, rates):
         log(f"  {e['name']}: max_abs_err {e['max_abs_err']:.3g}, kernel "
             f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})"
-            + (f"; stale: err {e['stale_max_abs_err']:.3g}, kernel "
-               f"{e['stale_ms']:.4f} ms, plain {e['stale_plain_ms']:.4f} "
-               f"ms, bound {e['stale_bound_ms']:.4f} ms"
-               if "stale_ms" in e else ""))
+            + "".join(f"; {tag[:-1]}: err {e[tag + 'max_abs_err']:.3g}, "
+                      f"kernel {e[tag + 'ms']:.4f} ms, plain "
+                      f"{e[tag + 'plain_ms']:.4f} ms, bound "
+                      f"{e[tag + 'bound_ms']:.4f} ms"
+                      for tag in ("stale_", "odd_", "stale_odd_")
+                      if tag + "ms" in e))
     log(f"  adahessian_update_flat: L2 flushed before each call (plain "
         f"too); with its inputs left in L2 {warm_ms:.4f} ms; at odd "
         f"n={N_ODD}: max_abs_err {errs[N_ODD]:.3g}")
+    log(f"  elastic_update_batched's bytes as one copy_: "
+        f"{out[1]['copy_ms']:.4f} ms")
     log("  library_ms: none — no single PyTorch call computes any of "
         "these four functions")
     return out
@@ -585,19 +615,30 @@ def train_cli(torch):
         lambda: sess._step(sess.state, batch, sess.round), 3)
     out["plain"] = rec
     plain_launches = rec["launches"]
-    # (c) the adversarial channels and the distance clamp
+    # (c) the adversarial channels and the distance clamp. The byzantine
+    #    runs record, per round, the live corrupt slots refused (h2 = 0)
+    #    and the live honest slots accepted (h2 > 0). Rounds 0-2 score
+    #    every slot above 4 (the u-history is still filling), so both clips
+    #    refuse all of them. In round 3 the honest slots score 3.04-3.21 and
+    #    the corrupt ones 4.74-4.77: --score-clip 3 still refuses everyone,
+    #    --score-clip 4 must accept every live honest slot and refuse both
+    #    corrupt ones.
+    byz = ["--failure-scenario", "byzantine", "--byzantine-mode", "noise"]
     runs = {
-        "byzantine": ["--failure-scenario", "byzantine", "--byzantine-mode",
-                      "noise", "--score-clip", "3"],
-        "hetero": ["--failure-scenario", "hetero"],
-        "u_zclip": ["--u-zclip", "3", "--comm-mode", "fused"]}
-    for label, extra in runs.items():
-        want = {"adahessian_update_batched": 16}
-        want["elastic_update_batched" if label == "u_zclip"
-             else "elastic_update"] = 4 if label == "u_zclip" else 32
+        "byzantine": (4, byz + ["--score-clip", "3"]),
+        "byzantine_clip4": (4, byz + ["--score-clip", "4"]),
+        "hetero": (4, ["--failure-scenario", "hetero"]),
+        "u_zclip": (4, ["--u-zclip", "3", "--comm-mode", "fused"])}
+    for label, (rounds, extra) in runs.items():
+        want = {"adahessian_update_batched": 4 * rounds}
+        if label == "u_zclip":
+            want["elastic_update_batched"] = rounds
+        else:
+            want["elastic_update"] = 8 * rounds
         sess, recs, rec = run(f"{label} k=8 tau=4", [
-            "--workers", "8", "--tau", "4", "--rounds", "4"] + extra, want)
-        if label == "byzantine":
+            "--workers", "8", "--tau", "4", "--rounds", str(rounds)] + extra,
+            want)
+        if label.startswith("byzantine"):
             bad = sess.schedule.corrupt[0]
             honest = [r.loss_w[~bad] for r in recs]
             if not bad.any() or not all(np.isfinite(x).all()
@@ -605,8 +646,26 @@ def train_cli(torch):
                 raise AssertionError("byzantine: no corrupt slot, or a "
                                      "non-finite honest loss")
             rec["corrupt_slots"] = np.flatnonzero(bad).tolist()
+            live_bad = [bad & ~r.fail for r in recs]
             rec["refused_rounds"] = [
-                int(((r.h2 == 0) & bad & ~r.fail).sum()) for r in recs]
+                int(((r.h2 == 0) & lb).sum()) for r, lb in zip(recs, live_bad)]
+            rec["corrupt_live_rounds"] = [int(lb.sum()) for lb in live_bad]
+            rec["honest_accepted_rounds"] = [
+                int(((r.h2 > 0) & ~bad & ~r.fail).sum()) for r in recs]
+            rec["honest_live_rounds"] = [
+                int((~bad & ~r.fail).sum()) for r in recs]
+            log(f"    corrupt slots {rec['corrupt_slots']}: refused "
+                f"{rec['refused_rounds']} of live {rec['corrupt_live_rounds']}"
+                f"; honest accepted {rec['honest_accepted_rounds']} of live "
+                f"{rec['honest_live_rounds']}")
+            if rec["refused_rounds"] != rec["corrupt_live_rounds"]:
+                raise AssertionError(f"{label}: a live corrupt slot's pull "
+                                     "was accepted")
+            if label == "byzantine_clip4" and (
+                    rec["honest_accepted_rounds"][3]
+                    != rec["honest_live_rounds"][3]):
+                raise AssertionError(f"{label}: a live honest slot was "
+                                     "refused in round 3")
         else:
             if not all(math.isfinite(r.loss) for r in recs):
                 raise AssertionError(f"{label}: a non-finite loss")
@@ -859,7 +918,8 @@ def profile_window(torch, name, fn, reps):
     return {"wall_ms": wall_us / reps / 1e3,
             "device_busy_ms": busy / reps / 1e3,
             "device_busy_share": busy / wall_us,
-            "kernels": len(spans) // reps}
+            "kernels": len(spans) // reps,
+            "top_ms": {k: v / reps / 1e3 for k, v in top}}
 
 
 def serving_device_parity(torch):
@@ -945,11 +1005,18 @@ def main() -> int:
         kernel.load()
     log(f"[2] built {sorted(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    hgmma = hgmma_count(libs["flash_attention.cu"])
+    log(f"    flash_attention library SASS: {hgmma} HGMMA instructions "
+        "(cuobjdump -sass | grep -c HGMMA)")
+    if hgmma == 0:
+        raise AssertionError("the flash-attention library has no HGMMA: its "
+                             "bf16 kernel does not use the tensor cores")
 
     log(f"[3] kernels vs plain versions at k={K}, n={N}")
     table = check_kernels(torch, rates)
     log(f"[3b] flash attention vs plain version, {len(FLASH_SWEEP)} shapes")
     table.append(check_flash(torch, rates))
+    table[-1]["hgmma_count"] = hgmma
 
     log("[4] §VI path: paper_repro.run_one on the card")
     totals, _ = main_path(torch)

@@ -4,11 +4,12 @@ the CPU.
 :func:`flash_attention_bshd` takes the layers' BSHD layout, as
 ``repro.kernels.flash_attention.ops.flash_attention_bshd`` does. A CUDA
 tensor launches ``csrc/flash_attention.cu`` (which replaces the Pallas
-``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``); a CPU
-tensor runs :func:`flash_attention_plain`, the full-matrix masked softmax
-in float32 that ``ref.py::mha_reference`` computes, cast back to the
-input dtype. There is no fallback: a CUDA tensor that cannot be launched
-raises.
+``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``):
+bfloat16 runs its tensor-core kernel (wgmma, TMA), float32 its CUDA-core
+kernel; one entry point, one launch count. A CPU tensor runs
+:func:`flash_attention_plain`, the full-matrix masked softmax in float32
+that ``ref.py::mha_reference`` computes, cast back to the input dtype.
+There is no fallback: a CUDA tensor that cannot be launched raises.
 
 Positions are the row indices (the kernel serves full-sequence calls:
 ``Sq == Skv``); K/V heads are shared GQA-style, q head ``h`` reading kv

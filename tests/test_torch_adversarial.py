@@ -66,13 +66,14 @@ def _round_noise(rng, k):
                      for rt in jax.random.split(rng, TAU)])
 
 
-def schedule_for(ekw, k, seed=SEED + 7):
-    return make_scenario(RElastic(**ekw)).schedule(seed, ROUNDS, k)
+def schedule_for(ekw, k, seed=SEED + 7, rounds=ROUNDS):
+    return make_scenario(RElastic(**ekw)).schedule(seed, rounds, k)
 
 
-def run_adversarial(ekw, okw, sched, k):
-    """``ROUNDS`` rounds of the reference and the port from one carried
-    state, every round's state and diagnostics compared."""
+def run_adversarial(ekw, okw, sched, k, rounds=ROUNDS, log=None):
+    """``rounds`` rounds of the reference and the port from one carried
+    state, every round's state and diagnostics compared; each round's port
+    diagnostics are appended to ``log`` when one is given."""
     model = RCNN(rget("paper-cnn"))
     rtrainer = RTrainer(model, ROpt(**okw), RElastic(**ekw))
     rstate = rtrainer.init_state(jax.random.key(SEED),
@@ -91,7 +92,7 @@ def run_adversarial(ekw, okw, sched, k):
     corrupt = sched.corrupt if sched.has_corruption else None
     speed = sched.speed if sched.has_hetero else None
     noisy = corrupt is not None and ekw.get("byzantine_mode") == "noise"
-    for r in range(ROUNDS):
+    for r in range(rounds):
         b = batcher.round_batches()
         rng = jax.random.fold_in(jax.random.key(SEED), r)
         rstate, rmet = rtrainer.round_step(rstate, RInputs(
@@ -114,6 +115,8 @@ def run_adversarial(ekw, okw, sched, k):
                             jax.device_get(rstate), f"round {r}")
         for key, want in jax.device_get(rmet).items():
             _close(tmet[key].numpy(), want, f"round {r} metric {key}")
+        if log is not None:
+            log.append(tmet)
     return tstate, tmet
 
 

@@ -4,7 +4,8 @@ paper CNN's parameter count (AdaHessian steps, batched and single-worker,
 rtol 2e-5, atol 2e-6; batched
 elastic exchange rtol 1e-5, atol 1e-6; one-worker exchange 1e-6), flash
 attention over the CPU tests' sweep plus qwen3-4b's prefill shape (2e-5
-in float32, 2e-2 in bfloat16). Marked ``cuda``: without a card
+in float32, 2e-2 in bfloat16; bfloat16 runs the tensor-core kernel, swept
+over D, S, GQA ratio and every mask). Marked ``cuda``: without a card
 every test skips. Imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -95,6 +96,27 @@ def test_elastic_batched_kernel_matches_plain(cuda, k, stale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("stale", [False, True])
+def test_elastic_batched_kernel_matches_plain_odd_n(cuda, k, stale):
+    """At an odd n every worker row but the first starts only 4-byte
+    aligned: the kernel takes its scalar path and masks nothing wrong."""
+    n = 999_983
+    gen = torch.Generator(cuda).manual_seed(k + 10)
+    w = torch.randn(k, n, generator=gen, device=cuda)
+    m, ref = (torch.randn(n, generator=gen, device=cuda) for _ in range(2))
+    h = torch.rand(2, k, generator=gen, device=cuda) * 0.5
+    w2, m2 = w.clone(), m.clone()
+    reset_launch_counts()
+    tela.elastic_update_batched(w2, m2, h, ref if stale else None)
+    torch.cuda.synchronize()
+    assert kernels()["elastic_update_batched"].launches == 1
+    tela.elastic_update_batched_plain(w, m, h, ref if stale else None)
+    torch.testing.assert_close(w2, w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(m2, m, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_elastic_one_worker_kernel_matches_plain(cuda):
     gen = torch.Generator(cuda).manual_seed(0)
     w, m = (torch.randn(N_CARD, generator=gen, device=cuda) for _ in range(2))
@@ -131,3 +153,31 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, B, H, KVH, S, D, mask):
     assert kernels()["flash_attention_fwd"].launches == 1
     want = tfla.flash_attention_plain(q, k, v, **mask)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+FLASH_MASKS = [dict(causal=True), dict(causal=False),
+               dict(causal=True, window=17), dict(causal=True, window=96),
+               dict(causal=True, chunk=64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 256, 512])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("mask", FLASH_MASKS)
+def test_flash_bf16_tensor_core_sweep(cuda, D, S, group, mask):
+    """The bfloat16 (tensor-core) kernel over head dims, lengths, GQA
+    ratios H/KVH and every mask, against the plain version at 2e-2."""
+    B, KVH = 2, 2
+    H = KVH * group
+    gen = torch.Generator(cuda).manual_seed(D + S + group)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, KVH, D, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    reset_launch_counts()
+    got = tfla.flash_attention_bshd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert kernels()["flash_attention_fwd"].launches == 1
+    want = tfla.flash_attention_plain(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
