@@ -39,6 +39,21 @@ failure:
    runs;
 5c. plain devices: three plain-mode steps on the card and on the CPU
    from the same carried params and probes; params agree per leaf;
+5d. membership: ``main`` at full width with 8 slots, DEAHES-O, τ=4, 8
+   rounds: 4 live scaled up to 8 at round 3 (both comm modes), then
+   preempt_rejoin (slots 6, 7 out for rounds 3-5); launch counts as the
+   path calls them (the batched AdaHessian step over all 8 rows each
+   τ-step, the exchange over all 8 slots), vacant slots' params
+   bit-unchanged, joiners equal to the master when they start, vacant
+   records zero, the live count per round as scheduled;
+5e. closed-loop control: ``--controller rules`` under crash_restart, 8
+   slots, 12 rounds, open and ``--detector-blind``: the journal printed,
+   the live mask after each applied action as the action says, evicted
+   slots frozen while out;
+5f. membership devices: 4 rounds at capacity 6, 4 live scaled up to 6,
+   card against CPU from the same params and probes; masters agree;
+5g. the §VI grid: two ``paper_repro`` jobs on the card through
+   ``experiments/grid.py``'s ``run_pool``, then ``report.repro_tables``;
 6. serving path: qwen3-4b at full width (4,022,468,096 bf16 params drawn
    on the card) through ``launch/serve.py``'s continuous engine over a
    16-request bursty trace, counts zeroed just before: flash attention
@@ -48,6 +63,7 @@ failure:
 7. serving devices: 2 layers at full width in float32 on the card and on
    the CPU from the same params, prefill and 4 decode steps agree;
 8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
+   ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -719,6 +735,298 @@ def plain_device_parity(torch):
     return {"max_abs_err": worst_abs, "worst_leaf_norm_rel": worst_norm}
 
 
+class MembershipWatch:
+    """Checks the membership contract on every ``ElasticTrainer`` round
+    while installed: a slot vacant in a round leaves it with its
+    parameters bit-unchanged (unless a crash-restart drawn for it re-seats
+    it from the master, as in the reference), and every slot a round
+    re-seats (a join or a restart) equals the master when its local phase
+    starts. Counts what it checked; raises at the first breach."""
+
+    def __init__(self, torch):
+        from repro_torch.core.coordinator import ElasticTrainer
+
+        self.torch, self.cls = torch, ElasticTrainer
+        self.vacant_checks = self.reseat_checks = self.vacant_reseats = 0
+
+    def __enter__(self):
+        import numpy as np
+
+        torch, watch = self.torch, self
+        round_step, apply_restarts = (self.cls.round_step,
+                                      self.cls.apply_restarts)
+
+        def checked_round(trainer, state, inputs):
+            vacant = (None if inputs.active is None
+                      else torch.as_tensor(~inputs.active))
+            if vacant is not None and inputs.restart is not None:
+                watch.vacant_reseats += int((~inputs.active
+                                             & inputs.restart).sum())
+                vacant &= torch.as_tensor(~inputs.restart)
+            before = (None if vacant is None or not vacant.any()
+                      else state["workers"][vacant.to(state["workers"]
+                                                      .device)].clone())
+            out = round_step(trainer, state, inputs)
+            if before is not None:
+                after = state["workers"][vacant.to(before.device)]
+                if not torch.equal(after, before):
+                    raise AssertionError(f"round {inputs.round}: a vacant "
+                                         "slot's parameters moved")
+                watch.vacant_checks += int(vacant.sum())
+            return out
+
+        def checked_reseat(trainer, state, reseat):
+            apply_restarts(trainer, state, reseat)
+            rows = np.flatnonzero(reseat)
+            for i in rows:
+                if not torch.equal(state["workers"][i], state["master"]):
+                    raise AssertionError(f"slot {i} re-seated off the master")
+            watch.reseat_checks += len(rows)
+
+        self.saved = (round_step, apply_restarts)
+        self.cls.round_step = checked_round
+        self.cls.apply_restarts = checked_reseat
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.round_step, self.cls.apply_restarts = self.saved
+        return False
+
+
+def _cli_run(torch, label, argv, want):
+    """``launch/train.py``'s ``main`` on ``argv`` under a
+    :class:`MembershipWatch`, every launch count zeroed just before and
+    read just after: they must be ``want`` (0 for the others). Returns
+    (session, records, watch, captured stdout)."""
+    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.launch.train import main
+
+    buf = io.StringIO()
+    with MembershipWatch(torch) as watch:
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            sess, recs = main(argv)
+        moved = {n: x.launches for n, x in kernels().items()}
+    full = {n: want.get(n, 0) for n in moved}
+    if moved != full:
+        raise AssertionError(f"{label}: launches {moved}, expected {full}")
+    if not bool(torch.isfinite(sess.master_params).all()):
+        raise AssertionError(f"{label}: non-finite master params")
+    for rec in recs:
+        vac = ~rec.active
+        if any(getattr(rec, key)[vac].any()
+               for key in ("u", "score", "h1", "h2", "loss_w")):
+            raise AssertionError(f"{label} round {rec.round}: a vacant "
+                                 "slot's record is not zero")
+    log(f"  {label}: live per round {[r.num_active for r in recs]}, "
+        f"launches { {n: c for n, c in moved.items() if c} }, vacant rows "
+        f"checked frozen {watch.vacant_checks}, re-seats checked "
+        f"{watch.reseat_checks}")
+    return sess, recs, watch, buf.getvalue(), moved
+
+
+def membership_cli(torch):
+    """Phase 5d: membership on the card through ``launch/train.py``'s
+    ``main`` at PaperCNN's full width. DEAHES-O, τ=4, 8 rounds: 4 live
+    slots of 8 scaled up to 8 at round 3, in both comm modes; then a
+    preempt_rejoin run (slots 6 and 7 out for rounds 3-5). Each run's
+    kernel launches are exactly its path's: the batched AdaHessian step
+    once per τ-step over all 8 rows, and the exchange over all 8 slots
+    (vacant ones with zero weights) in either comm mode."""
+    out = {}
+    base = ["--tau", "4", "--rounds", "8", "--capacity", "8"]
+    runs = {
+        "scale_up_sequential": (["--workers", "4", "--membership-scenario",
+                                 "scale_up", "--membership-k", "8",
+                                 "--membership-round", "3"], "sequential",
+                                [4, 4, 4, 8, 8, 8, 8, 8]),
+        "scale_up_fused": (["--workers", "4", "--membership-scenario",
+                            "scale_up", "--membership-k", "8",
+                            "--membership-round", "3"], "fused",
+                           [4, 4, 4, 8, 8, 8, 8, 8]),
+        "preempt_rejoin": (["--workers", "8", "--membership-scenario",
+                            "preempt_rejoin", "--membership-k", "2",
+                            "--membership-round", "3"], "sequential",
+                           [8, 8, 8, 6, 6, 6, 8, 8]),
+    }
+    for label, (flags, comm, live) in runs.items():
+        want = {"adahessian_update_batched": 8 * 4}
+        want["elastic_update" if comm == "sequential"
+             else "elastic_update_batched"] = 8 * (8 if comm ==
+                                                   "sequential" else 1)
+        sess, recs, watch, _, moved = _cli_run(
+            torch, label, base + flags + ["--comm-mode", comm], want)
+        if [r.num_active for r in recs] != live:
+            raise AssertionError(f"{label}: live per round "
+                                 f"{[r.num_active for r in recs]}")
+        joins = sum(int(x.sum()) for x in sess.schedule.joins())
+        if watch.reseat_checks != joins or not watch.vacant_checks:
+            raise AssertionError(f"{label}: {watch.reseat_checks} re-seats "
+                                 f"checked of {joins} joins")
+        ms = [r.round_ms for r in recs]
+        entry = {"live": live, "launches": moved,
+                 "vacant_rows_checked": watch.vacant_checks,
+                 "joins_checked": watch.reseat_checks,
+                 "final_loss": recs[-1].loss, "round_ms": ms}
+        if label.startswith("scale_up"):
+            # round 0 carries warm-up; round 3 the joins
+            entry["round_ms_4_of_8_live"] = statistics.median(ms[1:3])
+            entry["round_ms_8_of_8_live"] = statistics.median(ms[4:])
+            log(f"    round ms at capacity 8: 4 live "
+                f"{entry['round_ms_4_of_8_live']:.2f}, 8 live "
+                f"{entry['round_ms_8_of_8_live']:.2f}")
+            entry["profile"] = profile_live_counts(torch, sess.spec)
+        out[label] = entry
+    return out
+
+
+def profile_live_counts(torch, spec):
+    """Where a capacity-8 round's time goes with 4 and with 8 live slots:
+    a fresh session of ``spec`` (the scale-up run's), one profiled round
+    at 4 live (round 1, after a warm-up round) and one at 8 live (round 5,
+    after the joins and a warm-up round)."""
+    import dataclasses
+
+    from repro_torch.api.session import ElasticSession
+
+    sess = ElasticSession(dataclasses.replace(spec, save_path=None))
+    out = {"4_of_8_live": profile_window(
+        torch, "round at 4 of 8 live (profiled)",
+        lambda: sess._run_chunk(1), 1)}
+    sess.run(2)
+    out["8_of_8_live"] = profile_window(
+        torch, "round at 8 of 8 live (profiled)",
+        lambda: sess._run_chunk(1), 1)
+    return out
+
+
+def control_cli(torch):
+    """Phase 5e: closed-loop control on the card: ``--controller rules``
+    under crash_restart at k=8 (capacity 8), 12 rounds, open and
+    ``--detector-blind``. The journal of applied actions is printed; the
+    live mask of the round after each applied action is what the action
+    says, and an evicted slot's parameters stay bit-unchanged while it is
+    out (``MembershipWatch``). No closed-loop precision or recall is
+    asserted."""
+    out = {}
+    argv = ["--workers", "8", "--capacity", "8", "--rounds", "12",
+            "--controller", "rules", "--failure-scenario", "crash_restart"]
+    for label, extra in (("rules", []),
+                         ("rules_detector_blind", ["--detector-blind"])):
+        sess, recs, watch, text, moved = _cli_run(
+            torch, label, argv + extra,
+            {"adahessian_update_batched": 12, "elastic_update": 12 * 8})
+        journal = [line for line in text.splitlines()
+                   if line.startswith("[control]")]
+        for line in journal:
+            log(f"    {line}")
+        applied = [a for a in sess.controller.actuator.log if a.applied]
+        for a in applied:
+            if a.action.kind not in ("evict", "readmit"):
+                continue
+            row = recs[a.round].active if a.round < len(recs) else None
+            want = a.action.kind == "readmit"
+            if row is None or any(row[s] != want for s in a.action.slots):
+                raise AssertionError(f"{label}: round {a.round} live mask "
+                                     f"{row} after {a.action.describe()}")
+        if extra and any(r.fail.any() or r.restart.any() for r in recs):
+            raise AssertionError("detector-blind records carry truth")
+        out[label] = {
+            "journal_length": len(sess.controller.actuator.log),
+            "applied": [{"round": a.round, "action": a.action.describe(),
+                         "live_after": a.live_after} for a in applied],
+            "live": [r.num_active for r in recs], "launches": moved,
+            "vacant_rows_checked": watch.vacant_checks,
+            "vacant_reseated_by_restart": watch.vacant_reseats,
+            "round_ms": statistics.median(r.round_ms for r in recs[1:])}
+    return out
+
+
+def membership_device_parity(torch):
+    """Phase 5f: membership on the card (kernels) and on the CPU (plain
+    versions), 4 rounds of DEAHES-O at capacity 6 with 4 live slots scaled
+    up to 6 at round 2, from the same carried params and probes; the
+    masters agree at phase 5's tolerance (``_leaf_parity``, norm-wise
+    1e-4)."""
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession, RunSpec
+    from repro_torch.configs.base import (ElasticConfig, OptimizerConfig,
+                                          get_config)
+    from repro_torch.kernels.flatten import FlatLayout
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.nn.param import init_tree
+
+    spec_tree = PaperCNN(get_config("paper-cnn")).spec
+    layout = FlatLayout(spec_tree)
+    params = init_tree(torch.Generator().manual_seed(5), spec_tree)
+
+    def probes(device):
+        def fn(r, t, i):
+            rng = np.random.default_rng([13, r, t, i])
+            z = rng.integers(0, 2, (1, layout.n)).astype(np.float32) * 2 - 1
+            return torch.from_numpy(z).to(device)
+        return fn
+
+    masters, live = {}, {}
+    for device in ("cuda", "cpu"):
+        spec = RunSpec(
+            optimizer=OptimizerConfig(name="adahessian"),
+            elastic=ElasticConfig(num_workers=4, capacity=6, tau=1,
+                                  membership_scenario="scale_up",
+                                  membership_k=6, membership_round=2),
+            rounds=4, batch_size=32, n_data=2000, n_test=100, device=device)
+        sess = ElasticSession(spec, params=params, probe_fn=probes(device))
+        live[device] = [r.num_active for r in sess.run()]
+        masters[device] = sess.state["master"].cpu().double()
+    if not live["cuda"] == live["cpu"] == [4, 4, 6, 6]:
+        raise AssertionError(f"live per round {live}")
+    worst_norm, worst_abs = _leaf_parity(torch, layout, masters["cuda"],
+                                         masters["cpu"], "membership", 1e-4)
+    log(f"  scale-up 4 -> 6 of 6: cuda vs cpu master max abs err "
+        f"{worst_abs:.3g}, worst leaf norm-wise {worst_norm:.3g}")
+    return {"max_abs_err": worst_abs, "worst_leaf_norm_rel": worst_norm}
+
+
+def grid_report(torch):
+    """Phase 5g: two §VI grid jobs (DEAHES-O and EASGD, k=4, τ=1, 4
+    rounds) through ``experiments/grid.py``'s ``run_pool``, each a
+    ``paper_repro`` process on the card, then ``experiments/report.py``'s
+    ``repro_tables`` on their JSON."""
+    from repro_torch.experiments import grid, report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = grid.grid_jobs(rounds=4, methods=["DEAHES-O", "EASGD"],
+                              ks=(4,), taus=(1,), device="cuda",
+                              results=os.path.join(tmp, "paper_repro"))
+        if len(jobs) != 2 or any(cmd[-2:] != ["--device", "cuda"]
+                                 for _, cmd in jobs):
+            raise AssertionError(f"grid jobs {jobs}")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            failed = grid.run_pool(jobs, max_procs=2)
+        wall = time.perf_counter() - t0
+        if failed:
+            raise AssertionError(f"grid jobs failed: {failed}")
+        runs = {}
+        for name in os.listdir(os.path.join(tmp, "paper_repro")):
+            with open(os.path.join(tmp, "paper_repro", name)) as f:
+                res = json.load(f)
+            if res["device"] != "cuda:0" and res["device"] != "cuda":
+                raise AssertionError(f"{name} ran on {res['device']}")
+            runs[res["method"]] = {"final_acc": res["final_acc"],
+                                   "round_ms": res["round_ms"]}
+        table = report.repro_tables(tmp)
+    row = [line for line in table.splitlines() if line.startswith("| 4 | 1 |")]
+    if len(row) != 1 or row[0].count("—") != 4:
+        raise AssertionError(f"report table:\n{table}")
+    for line in table.strip().splitlines():
+        log(f"    {line}")
+    log(f"  2 jobs in {wall:.1f} s wall")
+    return {"jobs": 2, "wall_s": wall, "runs": runs, "table_row": row[0]}
+
+
 class WatchedLM:
     """Wraps a ``DecoderLM`` for the engines: every ``prefill`` /
     ``decode_step`` is timed between two ``synchronize()`` calls (the
@@ -1030,6 +1338,15 @@ def main() -> int:
     log("[5c] card vs CPU, plain control, 3 steps, carried params and probes")
     cli["plain_card_vs_cpu"] = plain_device_parity(torch)
 
+    log("[5d] membership at full width: launch/train.py main, capacity 8")
+    membership = membership_cli(torch)
+    log("[5e] closed-loop control at full width: --controller rules")
+    control = control_cli(torch)
+    log("[5f] card vs CPU, membership: scale-up 4 -> 6, 4 rounds")
+    membership["card_vs_cpu"] = membership_device_parity(torch)
+    log("[5g] §VI grid (2 jobs on the card) and report")
+    membership["grid"] = grid_report(torch)
+
     log("[6] serving path: qwen3-4b at full width through launch/serve.py")
     serve_counts, serve_stats = serving_path(torch)
     for entry in table:
@@ -1045,6 +1362,8 @@ def main() -> int:
     log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train_cli": cli}))
     print(json.dumps({"serving": serve_stats}))
+    print(json.dumps({"membership": membership}))
+    print(json.dumps({"control": control}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -21,15 +21,33 @@ master in the reference's checkpoint format (``repro_torch.checkpoint``);
 ``corrupt``/``speed`` channels of the byzantine and hetero scenarios ride
 into every round.
 
-Not ported yet, each refused by name: closed-loop control
-(``controller``, ``detector_blind``, ``apply``), membership (schedules
-with an ``active`` channel; see also
-``repro_torch.core.coordinator.check_slice``) and LM training.
+Elastic membership: with ``ElasticConfig.capacity > num_workers`` (or any
+non-static ``membership_scenario``) the worker axis is capacity-padded and
+a per-round live mask (``make_membership``'s stream, or a custom
+schedule's ``active`` rows) rides through ``RoundInputs``. Chunks snap to
+membership transitions, so the data is re-partitioned over the new pool
+between chunks; joining slots are re-seated from the master; every
+:class:`RoundRecord` echoes the live mask. ``restore`` may warm-start at
+another capacity.
+
+Closed-loop control: ``apply(ControlAction)`` is the one live-control
+entry point (``resize`` / ``set_membership`` are deprecated wrappers).
+Observers (``add_observer``, or ``RunSpec.controller="rules"`` for the
+rule controller of ``repro_torch.control``) see every record
+(``on_round``) and get the mutation window between chunks
+(``on_chunk_end``). ``RunSpec.detector_blind`` echoes a mask-zeroed
+schedule into the records, so a controller runs on observable telemetry
+only.
+
+Not ported yet, refused by name: LM training (and, in
+``repro_torch.core.coordinator.check_slice``, hierarchy and sharded
+placement).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -38,9 +56,12 @@ import torch
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs.base import (ElasticConfig, ModelConfig,
                                       OptimizerConfig, get_config)
+from repro_torch.control.actions import ControlAction, SessionObserver
+from repro_torch.control.actuator import make_controller
 from repro_torch.core.coordinator import (ElasticTrainer, NoiseFn, ProbeFn,
                                           RoundInputs)
-from repro_torch.core.scenarios import ScenarioSchedule, make_scenario
+from repro_torch.core.scenarios import (ScenarioSchedule, make_membership,
+                                        make_scenario)
 from repro_torch.data.pipeline import WorkerBatcher
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.device import resolve_device
@@ -75,8 +96,8 @@ class RunSpec:
     eval_every: int = 0  # 0 = never; >0 = every e rounds + the final round
     save_path: Optional[str] = None
     device: str = "cuda"
-    controller: Optional[str] = None
-    detector_blind: bool = False
+    controller: Optional[str] = None  # None = open loop; "rules"
+    detector_blind: bool = False  # echo mask-zeroed schedule into records
 
     def __post_init__(self):
         for name in ("rounds", "rounds_per_call", "batch_size", "n_data",
@@ -96,19 +117,31 @@ class RunSpec:
                 raise ValueError(
                     f"RunSpec.schedule shape {self.schedule.fail.shape} != "
                     f"(rounds, capacity) = {want}")
-        for name, unported in (("controller", self.controller),
-                               ("detector_blind", self.detector_blind)):
-            if unported:
-                raise NotImplementedError(
-                    f"RunSpec.{name} is not ported to PyTorch yet")
+        if self.controller is not None:
+            if self.controller != "rules":
+                raise ValueError(
+                    f"RunSpec.controller must be None or 'rules', got "
+                    f"{self.controller!r}")
+            if self.plain:
+                raise ValueError(
+                    "RunSpec: plain mode has no worker pool to control")
+        if self.detector_blind and self.elastic.oracle:
+            raise ValueError(
+                "RunSpec: detector_blind contradicts ElasticConfig.oracle — "
+                "the oracle weighting itself reads the ground-truth masks")
+
+    def replace(self, **kw) -> "RunSpec":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
 class RoundRecord:
     """One communication round, on the host (fields as in the reference:
-    (k,) ``u/score/h1/h2/loss_w``, the schedule rows that drove the round,
-    eval metrics on eval rounds, and the chunk's timings). In plain mode
-    the diagnostics are (1,) zeros and ``loss_w`` is None."""
+    (cap,) ``u/score/h1/h2/loss_w``, the schedule rows that drove the
+    round — all-False under ``RunSpec.detector_blind`` — the live mask
+    ``active``, eval metrics on eval rounds, and the chunk's timings).
+    Vacant slots report zeroed diagnostics. In plain mode the diagnostics
+    are (1,) zeros and ``loss_w`` is None."""
 
     round: int
     loss: float
@@ -121,11 +154,16 @@ class RoundRecord:
     restart: np.ndarray
     eval_loss: Optional[float] = None
     eval_acc: Optional[float] = None
+    active: Optional[np.ndarray] = None
     loss_w: Optional[np.ndarray] = None
     round_ms: float = 0.0
     dispatch_ms: float = 0.0
     # (k,) bool byzantine slots of the round (all False without them)
     corrupt: Optional[np.ndarray] = None
+
+    @property
+    def num_active(self) -> int:
+        return int(self.active.sum()) if self.active is not None else 0
 
 
 class ElasticSession:
@@ -174,8 +212,12 @@ class ElasticSession:
                                      seed=spec.seed)
         self._test = self._to_device(ds.test_batch())
         self.round = 0  # rounds completed so far
+        self._active = np.arange(self.capacity) < ecfg.num_workers
+        self._observers: List[SessionObserver] = []
+        self.controller = None
         if spec.plain:
             self.schedule = None
+            self._membership = self._join_rows = None
             self.state = init_train_state(self.model, spec.optimizer, params,
                                           seed=spec.seed, device=self.device)
             self._step = make_train_step(
@@ -190,12 +232,28 @@ class ElasticSession:
                      else spec.seed + 7)
             self.schedule = make_scenario(ecfg).schedule(
                 sseed, spec.rounds, self.capacity)
-        if self.schedule.active is not None:
-            raise NotImplementedError(
-                "schedules with an active (membership) channel are not "
-                "ported to PyTorch yet")
+        if self.schedule.active is None and (
+                self.capacity > ecfg.num_workers
+                or ecfg.membership_scenario != "static"):
+            # membership stream: planned resize events at capacity
+            self.schedule = self.schedule.with_membership(
+                make_membership(ecfg).active_schedule(
+                    spec.rounds, self.capacity, ecfg.num_workers))
         self._failed_recent = self.schedule.failed_recent_all()
+        self._refresh_membership()
+        # -- observers / controller -----------------------------------------
+        # detector-blind runs echo a mask-zeroed schedule view into the
+        # records; the real schedule still drives RoundInputs
+        self._echo = (self.schedule.blind() if spec.detector_blind
+                      else self.schedule)
+        if spec.controller is not None:
+            self.controller = make_controller(spec.controller, self.capacity)
+            self.add_observer(self.controller)
         self.state = self.trainer.init_state(params)
+        if self.schedule.has_membership:
+            # seat round 0's membership (a custom schedule or a plan step
+            # at round 0 may start with another pool than num_workers)
+            self._apply_membership(self.schedule.active[0])
 
     def _to_device(self, batch):
         return {"images": torch.as_tensor(batch["images"]).to(self.device),
@@ -244,8 +302,7 @@ class ElasticSession:
                              else self.ecfg.failure_scenario)}
         if not self.spec.plain:
             meta["elastic"] = checkpoint.elastic_manifest(
-                np.ones(self.capacity, bool),
-                self.state["u_hist"].cpu().numpy())
+                self._active, self.state["u_hist"].cpu().numpy())
         meta.update(extra_metadata or {})
         checkpoint.save(path, self.master_tree(), metadata=meta)
         return path
@@ -257,9 +314,10 @@ class ElasticSession:
         elastic run restores the master exactly and cold-starts every
         worker from it with fresh optimizer state (worker params are not
         checkpointed: a restore is a pool-wide rejoin); the saved live
-        slots' u-histories are re-seated in order
-        (``checkpoint.reseat_u_hist``). Raises on an architecture
-        mismatch."""
+        slots' u-histories are re-seated into this session's live slots in
+        order (``checkpoint.reseat_u_hist``), also when the two capacities
+        differ; any further live slot is a joiner with a blank history.
+        Raises on an architecture mismatch."""
         arch = checkpoint.read_metadata(path).get("arch")
         if arch is not None and arch != self.model_cfg.name:
             raise ValueError(
@@ -275,32 +333,173 @@ class ElasticSession:
                 self.layout.pack_tree(tree, device=self.device))
             return meta
         u_hist = checkpoint.reseat_u_hist(
-            meta.get("elastic"), self.capacity, np.ones(self.capacity, bool),
+            meta.get("elastic"), self.capacity, self._active,
             self.ecfg.score_window)
         state = self.trainer.init_state(tree)
         state["u_hist"] = torch.as_tensor(u_hist, device=self.device)
         self.state = state
         return meta
 
-    # -- not ported yet -------------------------------------------------------
-    def apply(self, *args, **kwargs):
-        raise NotImplementedError("closed-loop control (ElasticSession.apply)"
-                                  " is not ported to PyTorch yet")
+    # -- membership ----------------------------------------------------------
+    def _refresh_membership(self):
+        """Re-derive the per-round membership and join rows from the
+        schedule; join rows stay ``None`` when no slot ever flips
+        inactive→active."""
+        self._membership = self.schedule.active
+        joins = self.schedule.joins()
+        self._join_rows = joins if joins.any() else None
+
+    def _apply_membership(self, row: np.ndarray):
+        """Host-side membership transition: remember the live mask and
+        re-partition the data over the new pool (the overlap O stays put;
+        only the unique shards are redealt)."""
+        if np.array_equal(row, self._active):
+            return
+        self._active = row.copy()
+        self.batcher.set_active_mask(row)
+
+    @property
+    def active_mask(self) -> np.ndarray:
+        """(cap,) bool — the live-membership mask as of the next round."""
+        return self._active.copy()
+
+    @property
+    def num_active(self) -> int:
+        return int(self._active.sum())
+
+    def _set_membership(self, mask: np.ndarray) -> None:
+        """Live membership change between chunks: ``mask`` (cap,) bool
+        becomes the pool for every remaining round, overriding the
+        scheduled stream from here on. Newly live slots join at the next
+        round, re-seated from the master. A fixed-k spec (no membership
+        stream) gets one here."""
+        if self.spec.plain:
+            raise ValueError("plain mode has no worker pool to resize")
+        mask = np.asarray(mask, bool)
+        if mask.shape != (self.capacity,):
+            raise ValueError(
+                f"membership mask shape {mask.shape} != ({self.capacity},)")
+        if not mask.any():
+            raise ValueError("at least one worker must stay active")
+        if self.round >= self.spec.rounds:
+            raise ValueError("run already complete; nothing left to resize")
+        rows = self.schedule.active
+        if rows is None:
+            rows = np.arange(self.capacity)[None] < self.ecfg.num_workers
+            rows = np.repeat(rows, self.spec.rounds, axis=0)
+            rows[:self.round] = self._active  # frozen history
+        rows = rows.copy()
+        rows[self.round:] = mask
+        self.schedule = self.schedule.with_membership(rows)
+        self._refresh_membership()
+        self._apply_membership(mask)
+
+    def _resize(self, k: int) -> None:
+        """Pool resize to ``k``: growing activates the lowest-numbered
+        vacant slots (joiners, re-seated from the master); shrinking
+        retires the highest-numbered live slots."""
+        if self.spec.plain:
+            raise ValueError("plain mode has no worker pool to resize")
+        if not 1 <= k <= self.capacity:
+            raise ValueError(
+                f"resize target {k} outside 1..capacity={self.capacity}")
+        mask = self._active.copy()
+        live = np.flatnonzero(mask)
+        if k > len(live):
+            vacant = np.flatnonzero(~mask)
+            mask[vacant[:k - len(live)]] = True
+        elif k < len(live):
+            mask[live[k:]] = False
+        self._set_membership(mask)
+
+    def apply(self, action: ControlAction) -> None:
+        """The single live-control entry point: execute one
+        :class:`ControlAction` against the pool, between ``run`` calls or
+        inside an ``on_chunk_end`` hook. ``evict`` requires its slots live
+        and ``readmit`` requires them vacant: a stale action raises instead
+        of half-applying (the controller's ``Actuator`` journals and
+        re-scopes stale actions before calling this)."""
+        if not isinstance(action, ControlAction):
+            raise TypeError(
+                f"ElasticSession.apply expects a ControlAction, got "
+                f"{type(action).__name__}")
+        if action.kind == "noop":
+            return
+        if action.kind == "resize":
+            self._resize(action.k)
+            return
+        if action.kind == "set_membership":
+            self._set_membership(action.mask)
+            return
+        if self.spec.plain:
+            raise ValueError("plain mode has no worker pool to resize")
+        bad = [s for s in action.slots if not 0 <= s < self.capacity]
+        if bad:
+            raise ValueError(
+                f"{action.kind} slots {bad} outside 0..{self.capacity - 1}")
+        mask = self._active.copy()
+        if action.kind == "evict":
+            dead = [s for s in action.slots if not mask[s]]
+            if dead:
+                raise ValueError(f"cannot evict vacant slots {dead}")
+            mask[list(action.slots)] = False
+        else:  # readmit
+            live = [s for s in action.slots if mask[s]]
+            if live:
+                raise ValueError(f"cannot readmit live slots {live}")
+            mask[list(action.slots)] = True
+        self._set_membership(mask)
+
+    def set_membership(self, mask) -> None:
+        """Deprecated: use ``apply(ControlAction.set_membership(mask))``."""
+        warnings.warn(
+            "ElasticSession.set_membership() is deprecated; use "
+            "apply(ControlAction.set_membership(mask))",
+            DeprecationWarning, stacklevel=2)
+        self._set_membership(mask)
+
+    def resize(self, k: int) -> None:
+        """Deprecated: use ``apply(ControlAction.resize(k))``."""
+        warnings.warn(
+            "ElasticSession.resize() is deprecated; use "
+            "apply(ControlAction.resize(k))",
+            DeprecationWarning, stacklevel=2)
+        self._resize(k)
+
+    # -- observers -------------------------------------------------------------
+    def add_observer(self, observer: SessionObserver) -> None:
+        """Attach an observer: ``on_round(record)`` fires for every
+        completed round, ``on_chunk_end(session)`` between chunks (the
+        mutation window, the only place a controller calls ``apply``).
+        Both hooks are optional."""
+        self._observers.append(observer)
 
     # -- execution ----------------------------------------------------------
     def _next_chunk(self, end: int) -> int:
         """Rounds in the next chunk: at most ``rounds_per_call``, never past
-        ``end`` or the next eval round."""
+        ``end`` or the next eval round, and never across a membership
+        transition (the data is re-partitioned between chunks)."""
         n = min(self.spec.rounds_per_call, end - self.round)
         if self.spec.eval_every > 0:
             for r in range(self.round, self.round + n):
                 if self._is_eval_round(r):
-                    return r - self.round + 1
+                    n = r - self.round + 1
+                    break
+        if self._membership is not None:
+            row = self._membership[self.round]
+            for r in range(self.round + 1, self.round + n):
+                if not np.array_equal(self._membership[r], row):
+                    n = r - self.round
+                    break
         return n
 
     def _run_chunk(self, n: int) -> List[RoundRecord]:
         lo, hi = self.round, self.round + n
         sched = self.schedule
+        if self._membership is not None:
+            # membership is constant over a chunk (_next_chunk snaps at
+            # transitions): re-partition the data before drawing batches
+            self._apply_membership(self._membership[lo])
         host_batches = [self.batcher.round_batches() for _ in range(n)]
         t0 = time.perf_counter()
         metrics = []
@@ -311,7 +510,11 @@ class ElasticSession:
                 straggle=sched.straggle[r] if sched.has_stragglers else None,
                 restart=sched.restart[r] if sched.has_restarts else None,
                 corrupt=sched.corrupt[r] if sched.has_corruption else None,
-                speed=sched.speed[r] if sched.has_hetero else None)
+                speed=sched.speed[r] if sched.has_hetero else None,
+                active=(None if self._membership is None
+                        else self._membership[r]),
+                join=(None if self._join_rows is None
+                      else self._join_rows[r]))
             metrics.append(self.trainer.round_step(self.state, inputs)[1])
         t1 = time.perf_counter()
         m = {key: torch.stack([mi[key] for mi in metrics]).cpu().numpy()
@@ -322,6 +525,7 @@ class ElasticSession:
         round_ms = (t2 - t0) * 1e3 / n
         dispatch_ms = (t1 - t0) * 1e3
         self.round = hi
+        echo = self._echo
         no_corrupt = np.zeros(self.capacity, bool)
         records = []
         for i, r in enumerate(range(lo, hi)):
@@ -332,11 +536,14 @@ class ElasticSession:
                 round=r, loss=float(m["loss"][i]),
                 u=m["u"][i], score=m["score"][i],
                 h1=m["h1"][i], h2=m["h2"][i],
-                fail=sched.fail[r], straggle=sched.straggle[r],
-                restart=sched.restart[r],
-                corrupt=(sched.corrupt[r] if sched.corrupt is not None
+                fail=echo.fail[r], straggle=echo.straggle[r],
+                restart=echo.restart[r],
+                corrupt=(echo.corrupt[r] if echo.corrupt is not None
                          else no_corrupt),
-                eval_loss=ev_loss, eval_acc=ev_acc, loss_w=m["loss_w"][i],
+                eval_loss=ev_loss, eval_acc=ev_acc,
+                active=(self._membership[r] if self._membership is not None
+                        else np.ones(self.capacity, bool)),
+                loss_w=m["loss_w"][i],
                 round_ms=round_ms, dispatch_ms=dispatch_ms))
         return records
 
@@ -369,7 +576,7 @@ class ElasticSession:
             records.append(RoundRecord(
                 round=r, loss=float(loss[i]), u=z, score=z, h1=z, h2=z,
                 fail=zb, straggle=zb, restart=zb, corrupt=zb,
-                eval_loss=ev_loss, eval_acc=ev_acc,
+                eval_loss=ev_loss, eval_acc=ev_acc, active=~zb,
                 round_ms=round_ms, dispatch_ms=dispatch_ms))
         return records
 
@@ -387,7 +594,20 @@ class ElasticSession:
         run_chunk = (self._run_chunk_plain if self.spec.plain
                      else self._run_chunk)
         while self.round < end:
-            yield from run_chunk(self._next_chunk(end))
+            records = run_chunk(self._next_chunk(end))
+            # observers run before the next chunk is built: on_chunk_end is
+            # the window where a controller may apply() membership edits
+            # that the following chunk then runs under
+            for obs in self._observers:
+                on_round = getattr(obs, "on_round", None)
+                if on_round is not None:
+                    for rec in records:
+                        on_round(rec)
+            for obs in self._observers:
+                on_chunk_end = getattr(obs, "on_chunk_end", None)
+                if on_chunk_end is not None:
+                    on_chunk_end(self)
+            yield from records
         if self.round >= self.spec.rounds and self.spec.save_path:
             self.save()
 

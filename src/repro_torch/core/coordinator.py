@@ -38,8 +38,18 @@ the optimizer reads it (the Hutchinson diagonal is left alone, as in the
 reference); a slot of speed s runs ``max(1, round(s·τ))`` local steps and
 freezes for the rest of the phase, in either comm mode.
 
-Out of this slice, each refused by name: membership/capacity, hierarchy,
-sharded placement.
+Elastic membership: the worker axis is sized at ``ElasticConfig.cap``
+slots, and ``RoundInputs.active`` selects the live ones. An inactive
+(vacant) slot is frozen end to end: its rows of the in-place AdaHessian
+step are restored after each τ-step, it adds neither loss nor count to the
+mean loss, it exchanges nothing (``dead = fail | ~active``: h1 = h2 = 0
+into the elastic kernels), its u-history stays as it was, and it reports
+zeroed u, score, h1 and h2. Slots in ``RoundInputs.join`` are re-seated
+from the master before the local phase, the same operation as a
+crash-restart rejoin. With ``active`` / ``join`` left ``None`` (a fixed-k
+run) nothing is masked, and an all-True mask gives the same bits.
+
+Out of this slice, each refused by name: hierarchy, sharded placement.
 """
 from __future__ import annotations
 
@@ -77,6 +87,9 @@ class RoundInputs:
     ``straggle``/``restart`` stay ``None`` when the scenario never fires
     them, and so do the adversarial channels: ``corrupt`` (k,) bool
     byzantine slots, ``speed`` (k,) float32 persistent speeds in (0, 1].
+    Membership: ``active`` (k,) bool live slots (``None``: all live) and
+    ``join`` (k,) bool slots (re)joining this round, re-seated from the
+    master (``None``: no join).
     """
 
     batches: Dict[str, torch.Tensor]
@@ -87,6 +100,8 @@ class RoundInputs:
     restart: Optional[np.ndarray] = None
     corrupt: Optional[np.ndarray] = None
     speed: Optional[np.ndarray] = None
+    active: Optional[np.ndarray] = None
+    join: Optional[np.ndarray] = None
 
 
 def _reseed(gen: torch.Generator, *words: int) -> torch.Generator:
@@ -135,8 +150,6 @@ class GaussianNoise:
 def check_slice(ecfg: ElasticConfig) -> None:
     """Refuse, by name, the features this port does not run yet."""
     missing = []
-    if ecfg.capacity or ecfg.membership_scenario != "static":
-        missing.append("elastic membership (capacity / membership_scenario)")
     if ecfg.hierarchical:
         missing.append("hierarchical averaging (groups / global_period)")
     if ecfg.placement != "single":
@@ -303,7 +316,8 @@ class ElasticTrainer:
     def local_phase(self, state, batches, r: int,
                     straggle: Optional[np.ndarray] = None,
                     corrupt: Optional[np.ndarray] = None,
-                    speed: Optional[np.ndarray] = None):
+                    speed: Optional[np.ndarray] = None,
+                    active: Optional[np.ndarray] = None):
         """τ local steps per worker, in place. ``straggle`` (k,) bool:
         straggling workers complete only the first
         ``max(1, round(straggler_tau_scale·τ))`` steps; ``speed`` (k,)
@@ -313,6 +327,8 @@ class ElasticTrainer:
         restored after each step (the reference computes and discards
         those steps the same way). ``corrupt`` (k,) bool: those slots'
         gradients are poisoned every step (:meth:`corrupt_grads`).
+        ``active`` (k,) bool: vacant slots are frozen for every step and
+        count neither loss nor steps.
 
         Returns ``(mean_loss, loss_w)``: the mean over live (worker, step)
         losses, and the (k,) per-worker mean over its live steps."""
@@ -328,6 +344,8 @@ class ElasticTrainer:
                     else ~straggle | (t < tau_eff))
             if speed_steps is not None:
                 live = live & (t < speed_steps)
+            if active is not None:
+                live = live & active
             frozen = torch.as_tensor(np.flatnonzero(~live),
                                      device=self.device)
             tensors = [state["workers"], *state["opt"].values()]
@@ -353,26 +371,34 @@ class ElasticTrainer:
     # -- communication phase -----------------------------------------------------
     def comm_phase(self, state, fail: np.ndarray,
                    failed_recent: Optional[np.ndarray] = None,
-                   straggle: Optional[np.ndarray] = None):
+                   straggle: Optional[np.ndarray] = None,
+                   active: Optional[np.ndarray] = None):
         """Elastic exchange under the fail mask (True suppresses a worker's
         sync), in place; returns the (k,) diagnostics ``u, score, h1, h2``.
 
         ``straggle``: straggling workers score against the previous round's
-        master snapshot. At the end ``master_prev`` becomes a copy of the
-        round-start master, taken before the exchange writes the master."""
+        master snapshot. ``active``: a vacant slot is not a failed worker —
+        it exchanges nothing, its u-history stays frozen and its
+        diagnostics read zero. At the end ``master_prev`` becomes a copy of
+        the round-start master, taken before the exchange writes the
+        master."""
         if failed_recent is None:
             failed_recent = np.zeros_like(fail)
         fr = torch.as_tensor(failed_recent, device=self.device)
         if self.ecfg.comm_mode == "fused":
-            metrics = self._comm_phase_fused(state, fail, fr, straggle)
+            metrics = self._comm_phase_fused(state, fail, fr, straggle,
+                                             active)
         else:
-            metrics = self._comm_phase_sequential(state, fail, fr, straggle)
+            metrics = self._comm_phase_sequential(state, fail, fr, straggle,
+                                                  active)
         state["round"] += 1
         return metrics
 
-    def _comm_phase_sequential(self, state, fail, fr, straggle):
+    def _comm_phase_sequential(self, state, fail, fr, straggle, active):
         """The paper's event-ordered scan: worker i scores against, and
-        exchanges with, the master as workers 0..i−1 left it."""
+        exchanges with, the master as workers 0..i−1 left it. A vacant slot
+        exchanges with zero weights, a no-op on the master, so the live
+        workers' event order is that of a pool without it."""
         ecfg, lay = self.ecfg, self.layout
         master, workers, hist = state["master"], state["workers"], \
             state["u_hist"]
@@ -392,22 +418,28 @@ class ElasticTrainer:
                 w_i.copy_(torch.where(quar, master, w_i))
                 u = torch.where(quar, torch.log(torch.tensor(
                     1e-30, dtype=torch.float32, device=self.device)), u)
-            hist[i] = dw.push_history(hist[i], u)
+            live = active is None or active[i]
+            if live:
+                hist[i] = dw.push_history(hist[i], u)
             a = dw.raw_score(hist[i], self._c)
             w1, w2 = dw.weights_for(ecfg, a, failed_recently=fr[i])
-            if fail[i]:  # suppressed communication: no exchange
+            if fail[i] or not live:  # suppressed communication or vacancy
                 w1, w2 = torch.zeros_like(w1), torch.zeros_like(w2)
             elastic_update(w_i, master, torch.stack([w1, w2]).reshape(2, 1))
+            if not live:  # vacant slots report zeroed diagnostics
+                u, a = torch.zeros_like(u), torch.zeros_like(a)
             rows.append(torch.stack([u, a, w1, w2]))
         u, a, w1, w2 = torch.stack(rows, dim=1)
         state["master_prev"] = round_start
         return {"u": u, "score": a, "h1": w1, "h2": w2}
 
-    def _comm_phase_fused(self, state, fail, fr, straggle):
+    def _comm_phase_fused(self, state, fail, fr, straggle, active):
         """Batched scoring against the round-start master (or, with
         ``staleness=1``, the previous round's snapshot) and one batched
         exchange whose master weights ``master_schedule_weights(h2)``
-        reproduce the sequential scan's master when the h2 agree."""
+        reproduce the sequential scan's master when the h2 agree. A vacant
+        slot enters the exchange with h1 = h2 = 0 (g_i = 0), keeps its
+        u-history and is left out of the ``u_zclip`` pool statistics."""
         ecfg, lay = self.ecfg, self.layout
         master, workers = state["master"], state["workers"]
         ref = state["master_prev"] if ecfg.staleness else master
@@ -416,14 +448,21 @@ class ElasticTrainer:
             workers.copy_(torch.where(quar[:, None], ref[None], workers))
         straggle_t = (None if straggle is None
                       else torch.as_tensor(straggle, device=self.device))
+        active_t = (None if active is None
+                    else torch.as_tensor(active, device=self.device))
         u, hist, a, w1, w2 = dw.comm_scores_batched(
             ecfg, workers, ref, state["u_hist"], lay, c=self._c,
             failed_recently=fr,
             stale_master=None if straggle is None else state["master_prev"],
-            straggle=straggle_t)
-        dead = torch.as_tensor(fail, device=self.device)
+            straggle=straggle_t, active=active_t)
+        dead = torch.as_tensor(fail if active is None else fail | ~active,
+                               device=self.device)
         w1 = torch.where(dead, 0.0, w1)
         w2 = torch.where(dead, 0.0, w2)
+        if active is not None:
+            hist = torch.where(active_t[:, None], hist, state["u_hist"])
+            u = torch.where(active_t, u, 0.0)
+            a = torch.where(active_t, a, 0.0)
         g2 = dw.master_schedule_weights(w2)
         round_start = master.clone()
         elastic_update_batched(workers, master, torch.stack([w1, g2]),
@@ -434,16 +473,21 @@ class ElasticTrainer:
 
     # -- full round ---------------------------------------------------------------
     def round_step(self, state, inputs: RoundInputs):
-        """One round, in place: restarts, local phase, comm phase. Returns
-        ``(state, metrics)`` with device-resident (k,) ``u, score, h1, h2,
-        loss_w`` and scalar ``loss``."""
-        if inputs.restart is not None:
-            self.apply_restarts(state, inputs.restart)
+        """One round, in place: restarts and joins (both re-seat from the
+        master), local phase, comm phase. Returns ``(state, metrics)`` with
+        device-resident (k,) ``u, score, h1, h2, loss_w`` and scalar
+        ``loss``."""
+        reseat = inputs.restart
+        if inputs.join is not None:
+            reseat = (inputs.join if reseat is None
+                      else reseat | inputs.join)
+        if reseat is not None:
+            self.apply_restarts(state, reseat)
         loss, loss_w = self.local_phase(state, inputs.batches, inputs.round,
                                         inputs.straggle, inputs.corrupt,
-                                        inputs.speed)
+                                        inputs.speed, inputs.active)
         metrics = self.comm_phase(state, inputs.fail, inputs.failed_recent,
-                                  inputs.straggle)
+                                  inputs.straggle, inputs.active)
         metrics["loss"] = loss
         metrics["loss_w"] = loss_w
         return state, metrics

@@ -123,14 +123,16 @@ def robust_zscore(u: torch.Tensor, live: Optional[torch.Tensor] = None
 
 def weights_for(cfg: ElasticConfig, a: torch.Tensor, *,
                 failed_recently: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None):
+                u: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None):
     """(h1, h2) for a raw score; supports fixed-α and oracle modes.
 
     Dynamic mode applies the two robustness clamps on w2: ``score_clip``
     (a score above it, or a non-finite one, is refused) and, when the (k,)
     log-distances ``u`` of the whole pool are given, ``u_zclip`` (a worker
-    more than u_zclip robust z-scores above the pool is refused; a NaN z
-    is refused too). The sequential scan passes no ``u``."""
+    more than u_zclip robust z-scores above the live pool — ``live`` masks
+    it, ``None`` is all live — is refused; a NaN z is refused too). The
+    sequential scan passes no ``u``."""
     if cfg.oracle:
         assert failed_recently is not None
         return (torch.where(failed_recently, 1.0, cfg.alpha),
@@ -144,7 +146,7 @@ def weights_for(cfg: ElasticConfig, a: torch.Tensor, *,
         # `a <= clip keeps w2`, so a non-finite score is refused too
         w2 = torch.where(a <= cfg.score_clip, w2, 0.0)
     if cfg.u_zclip > 0 and u is not None:
-        w2 = torch.where(robust_zscore(u) <= cfg.u_zclip, w2, 0.0)
+        w2 = torch.where(robust_zscore(u, live) <= cfg.u_zclip, w2, 0.0)
     return w1, w2
 
 
@@ -152,17 +154,19 @@ def comm_scores_batched(cfg: ElasticConfig, workers: torch.Tensor,
                         master: torch.Tensor, u_hist: torch.Tensor,
                         layout: FlatLayout, *, c: torch.Tensor,
                         failed_recently=None, stale_master=None,
-                        straggle=None):
+                        straggle=None, active=None):
     """Fused-mode scoring for all k workers against one master snapshot:
     ``(u, hist_new, a, w1, w2)``, each with a leading (k,) axis.
     ``straggle`` (k,) bool + ``stale_master``: straggling workers measure
     their distance against the stale snapshot instead. With
-    ``cfg.u_zclip > 0`` the pool's u feed the absolute-distance clamp."""
+    ``cfg.u_zclip > 0`` the u of the live pool (``active``, (k,) bool;
+    ``None``: every slot) feed the absolute-distance clamp."""
     u = log_distance(workers, master, layout)
     if straggle is not None and stale_master is not None:
         u = torch.where(straggle, log_distance(workers, stale_master, layout),
                         u)
     hist_new = push_history(u_hist, u)
     a = raw_score(hist_new, c)
-    w1, w2 = weights_for(cfg, a, failed_recently=failed_recently, u=u)
+    w1, w2 = weights_for(cfg, a, failed_recently=failed_recently, u=u,
+                         live=active)
     return u, hist_new, a, w1, w2

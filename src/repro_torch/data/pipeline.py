@@ -54,6 +54,9 @@ class _SlotMixin:
         self.active = slots
         self._repartition()
 
+    def set_active_mask(self, mask: np.ndarray):
+        self.set_active(np.flatnonzero(np.asarray(mask, bool)))
+
     def _zero_batch(self, like: Dict[str, np.ndarray]):
         if self._pad is None:
             self._pad = {key: np.zeros_like(v) for key, v in like.items()}

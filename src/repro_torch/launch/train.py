@@ -12,17 +12,26 @@ Two modes:
 
 ``--save DIR`` writes the master in the reference's checkpoint format at
 the end of the run; ``--trace`` / ``--dump-trace`` replay and record the
-scenario stream; ``--failure-scenario byzantine`` / ``hetero`` drive the
-adversarial channels, with ``--score-clip`` and ``--u-zclip`` as the
-master's clamps. The flags of slices not ported yet raise
-``NotImplementedError`` naming their slice: ``--capacity`` and
-``--membership-*`` (membership), ``--controller`` and ``--detector-blind``
-(closed-loop control), ``--placement sharded`` and
-``--coordinator-address`` / ``--num-processes`` / ``--process-id``
-(multi-GPU placement), ``--groups`` and ``--global-period`` (hierarchy).
+scenario stream, membership included (controller-applied resizes too);
+``--failure-scenario byzantine`` / ``hetero`` drive the adversarial
+channels, with ``--score-clip`` and ``--u-zclip`` as the master's clamps.
+``--capacity C`` pads the worker axis to C slots so the pool can resize
+(``--membership-scenario`` / ``--membership-plan "2:2,4:6"``);
+``--controller rules`` attaches the detector → policy → actuator loop of
+``repro_torch.control``, which evicts and readmits slots between chunks
+from observable telemetry only, and ``--detector-blind`` zeroes the
+ground-truth masks echoed into the printed records. The flags of slices
+not ported yet raise ``NotImplementedError`` naming their slice:
+``--placement sharded`` and ``--coordinator-address`` /
+``--num-processes`` / ``--process-id`` (multi-GPU placement),
+``--groups`` and ``--global-period`` (hierarchy).
 
     python -m repro_torch.launch.train --workers 8 --tau 4 --rounds 8
     python -m repro_torch.launch.train --device cpu --plain --rounds 5
+    python -m repro_torch.launch.train --workers 4 --capacity 8 \
+        --membership-scenario scale_up --membership-round 3 --rounds 8
+    python -m repro_torch.launch.train --workers 8 --controller rules \
+        --failure-scenario crash_restart --rounds 12
 """
 from __future__ import annotations
 
@@ -35,23 +44,14 @@ import torch
 from repro_torch.api.session import ElasticSession, RunSpec
 from repro_torch.configs.base import (FAILURE_SCENARIOS, MEMBERSHIP_SCENARIOS,
                                       ElasticConfig, OptimizerConfig)
-from repro_torch.core.scenarios import read_trace, write_trace
+from repro_torch.core.scenarios import (parse_membership_plan, read_trace,
+                                        write_trace)
 
 
 def _refuse_unported(args) -> None:
     """Every flag of a slice not ported yet, set away from its default,
     raises naming that slice."""
     unported = [
-        ("--capacity", args.capacity != 0, "elastic membership"),
-        ("--membership-scenario", args.membership_scenario != "static",
-         "elastic membership"),
-        ("--membership-k", args.membership_k != 0, "elastic membership"),
-        ("--membership-round", args.membership_round != 0,
-         "elastic membership"),
-        ("--membership-plan", bool(args.membership_plan),
-         "elastic membership"),
-        ("--controller", args.controller != "none", "closed-loop control"),
-        ("--detector-blind", args.detector_blind, "closed-loop control"),
         ("--placement", args.placement != "single",
          "multi-GPU placement (sharded)"),
         ("--groups", args.groups != 1, "hierarchical averaging"),
@@ -84,14 +84,21 @@ def main(argv=None):
                          "together (1 = every round)")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--capacity", type=int, default=0,
-                    help="worker-slot capacity (not ported yet)")
+                    help="worker-slot capacity (>= --workers; 0 = exactly "
+                         "--workers); membership can resize up to it")
     ap.add_argument("--membership-scenario", default="static",
                     choices=MEMBERSHIP_SCENARIOS,
-                    help="planned worker-pool resize stream (not ported "
-                         "yet)")
-    ap.add_argument("--membership-k", type=int, default=0)
-    ap.add_argument("--membership-round", type=int, default=0)
-    ap.add_argument("--membership-plan", default="")
+                    help="planned worker-pool resize stream "
+                         "(repro_torch/core/scenarios.py); 'plan' runs "
+                         "--membership-plan")
+    ap.add_argument("--membership-k", type=int, default=0,
+                    help="resize target (scale_up/scale_down) or preempted "
+                         "count (preempt_rejoin); 0 = scenario default")
+    ap.add_argument("--membership-round", type=int, default=0,
+                    help="round the membership event fires (0 = mid-run)")
+    ap.add_argument("--membership-plan", default="",
+                    help="explicit resize steps 'round:k,round:k' (e.g. "
+                         "'2:2,4:6'); implies --membership-scenario plan")
     ap.add_argument("--tau", type=int, default=1)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -106,10 +113,11 @@ def main(argv=None):
                          "(see repro_torch/core/scenarios.py)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="replay a recorded scenario trace (JSON-lines) "
-                         "instead of drawing a schedule; --rounds/--workers "
-                         "are coerced to the recorded shape")
+                         "instead of drawing a schedule; --rounds/--workers/"
+                         "--capacity are coerced to the recorded shape")
     ap.add_argument("--dump-trace", default=None, metavar="PATH",
-                    help="after the run, write the executed schedule as a "
+                    help="after the run, write the executed schedule "
+                         "(including controller-applied membership) as a "
                          "replayable JSON-lines trace")
     ap.add_argument("--score-clip", type=float, default=0.0,
                     help="robustness clamp: raw scores above this give the "
@@ -160,9 +168,14 @@ def main(argv=None):
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--controller", default="none",
                     choices=("none", "rules"),
-                    help="closed-loop membership control (not ported yet)")
+                    help="closed-loop membership control "
+                         "(repro_torch.control): 'rules' runs the failure "
+                         "detector + rule policy and applies evict/readmit "
+                         "at chunk boundaries")
     ap.add_argument("--detector-blind", action="store_true",
-                    help="closed-loop control (not ported yet)")
+                    help="echo a mask-zeroed schedule view into records "
+                         "(the controller never sees ground truth anyway; "
+                         "this blinds the printed records too)")
     ap.add_argument("--elastic", action="store_true", default=True)
     ap.add_argument("--plain", dest="elastic", action="store_false")
     ap.add_argument("--seed", type=int, default=0)
@@ -174,16 +187,34 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse_unported(args)
 
+    membership = args.membership_scenario
+    plan = ()
+    if args.membership_plan:
+        membership = "plan"
+        plan = parse_membership_plan(args.membership_plan)
+    capacity = args.capacity
     schedule = None
     if args.trace:
         schedule = read_trace(args.trace)
         rounds, cap = schedule.fail.shape
-        if (args.rounds, args.workers) != (rounds, cap):
+        if (args.rounds, capacity or args.workers) != (rounds, cap):
             print(f"[train] trace {args.trace}: coercing rounds/capacity "
                   f"to the recorded ({rounds}, {cap})")
-        args.rounds, args.workers = rounds, cap
+        args.rounds, capacity = rounds, cap
+        args.workers = (int(schedule.active[0].sum())
+                        if schedule.active is not None else cap)
+        membership, plan = "static", ()  # the trace carries membership
+    if membership != "static" and not capacity:
+        # resize needs headroom: default the slot pool to the largest
+        # worker count the scheduled stream ever reaches; a scale_up with
+        # no explicit target grows into its headroom, so give it some
+        capacity = max([args.workers, args.membership_k]
+                       + [k for _, k in plan])
+        if membership == "scale_up" and not args.membership_k:
+            capacity = 2 * args.workers
     ecfg = ElasticConfig(
-        num_workers=args.workers, tau=args.tau, alpha=args.alpha,
+        num_workers=args.workers, capacity=capacity, tau=args.tau,
+        alpha=args.alpha,
         overlap_ratio=args.overlap, failure_prob=args.failure_prob,
         dynamic=not args.no_dynamic, comm_mode=args.comm_mode,
         staleness=args.staleness, failure_scenario=args.failure_scenario,
@@ -193,7 +224,9 @@ def main(argv=None):
         byzantine_scale=args.byzantine_scale,
         hetero_dist=args.hetero_dist, hetero_sigma=args.hetero_sigma,
         hetero_slow_frac=args.hetero_slow_frac,
-        hetero_slow_scale=args.hetero_slow_scale)
+        hetero_slow_scale=args.hetero_slow_scale,
+        membership_scenario=membership, membership_k=args.membership_k,
+        membership_round=args.membership_round, membership_plan=plan)
     spec = RunSpec(
         schedule=schedule, arch=args.arch, smoke=args.smoke,
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
@@ -201,7 +234,9 @@ def main(argv=None):
         rounds_per_call=args.rounds_per_call, seed=args.seed,
         plain=not args.elastic, batch_size=args.batch_size, n_data=8000,
         n_test=1000, data_seed=args.data_seed, save_path=args.save,
-        device=args.device)
+        device=args.device,
+        controller=(None if args.controller == "none" else args.controller),
+        detector_blind=args.detector_blind)
     sess = ElasticSession(spec)
 
     t0 = time.time()
@@ -216,6 +251,8 @@ def main(argv=None):
             print(f"step {rec.round}: loss={rec.loss:.4f}", flush=True)
             continue
         extra = ""
+        if sess.schedule.has_membership or sess.controller is not None:
+            extra += f" k={rec.num_active}/{sess.capacity}"
         if sess.schedule.has_stragglers:
             extra += f" straggle={rec.straggle.astype(int).tolist()}"
         if sess.schedule.has_restarts:
@@ -229,6 +266,12 @@ def main(argv=None):
               f"({time.time()-t0:.1f}s)", flush=True)
     l2 = float(torch.linalg.vector_norm(sess.master_params.double()))
     print(f"[train] final master l2={l2:.10e}", flush=True)
+    if sess.controller is not None:
+        applied = [a for a in sess.controller.actuator.log if a.applied]
+        print(f"[control] {len(applied)} membership action(s) applied:")
+        for a in applied:
+            print(f"[control]   round {a.round}: {a.action.describe()} "
+                  f"-> {a.live_after} live")
     if args.dump_trace and sess.schedule is not None:
         write_trace(args.dump_trace, sess.schedule)
         print(f"[train] wrote scenario trace to {args.dump_trace}")

@@ -33,6 +33,9 @@ from repro_torch.models.registry import build_model as tbuild
 from repro_torch.nn import layers as tlayers
 from repro_torch.nn.param import (init_tree, param_count, params_from_numpy,
                                   tree_leaves)
+from test_torch_session import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 S = 128  # a flash-kernel shape: Sq == Skv == 128
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),

@@ -319,19 +319,29 @@ def test_first_order_curves_match_reference_run_one(method):
 
 
 def test_session_refuses_unported_features_by_name():
-    with pytest.raises(NotImplementedError, match="membership"):
-        ElasticSession(_spec(elastic=dict(capacity=4)))
+    """Hierarchy, sharded placement and LM training still raise naming
+    their slice. Membership (capacity, an ``active`` schedule), the rule
+    controller, ``detector_blind`` and ``apply`` have since been ported:
+    they now construct (tests/test_torch_membership.py and
+    tests/test_torch_control.py run them)."""
     with pytest.raises(NotImplementedError, match="hierarchical"):
         ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
-    with pytest.raises(NotImplementedError, match="controller"):
-        _spec(controller="rules")
-    with pytest.raises(NotImplementedError, match="detector_blind"):
-        _spec(detector_blind=True)
+    with pytest.raises(NotImplementedError, match="hierarchical"):
+        ElasticSession(_spec(elastic=dict(global_period=2,
+                                          comm_mode="fused")))
+    with pytest.raises(NotImplementedError, match="sharded placement"):
+        ElasticSession(_spec(elastic=dict(placement="sharded",
+                                          comm_mode="fused")))
+    with pytest.raises(NotImplementedError, match="LM training"):
+        ElasticSession(_spec(model_cfg=tget("qwen3-4b", smoke=True)))
+    assert ElasticSession(_spec(elastic=dict(capacity=4))).capacity == 4
+    assert ElasticSession(_spec(controller="rules")).controller is not None
     z = np.zeros((3, 3), bool)
-    with pytest.raises(NotImplementedError, match="membership"):
-        ElasticSession(_spec(schedule=ScenarioSchedule(z, z, z, active=~z)))
-    sess = ElasticSession(_spec())
-    with pytest.raises(NotImplementedError, match="apply"):
+    sess = ElasticSession(_spec(schedule=ScenarioSchedule(
+        z, z, z, active=np.array([[1, 1, 0]] * 3, bool)),
+        detector_blind=True))
+    assert sess.active_mask.tolist() == [True, True, False]
+    with pytest.raises(TypeError, match="ControlAction"):
         sess.apply(None)
     assert [n for n, _ in tree_leaves(sess.model.spec)][0] == ("conv1", "b")
 

@@ -1,8 +1,9 @@
 """The port's training CLI (``repro_torch.launch.train``) on ``--device
 cpu``: its per-round lines in the reference CLI's format, ``--save`` read
-back by a session restore, ``--dump-trace`` / ``--trace`` replay, the
-adversarial scenarios' extra fields, and the refusal by name of every flag
-whose slice is not ported yet."""
+back by a session restore, ``--dump-trace`` / ``--trace`` replay (the
+membership stream included), the adversarial scenarios' extra fields, the
+membership and closed-loop control flags, and the refusal by name of every
+flag whose slice is not ported yet."""
 import dataclasses
 import re
 
@@ -77,7 +78,10 @@ def test_save_then_restore_and_trace_replay(tmp_path, capsys):
     assert torch.equal(replay.state["master"], sess.state["master"])
 
 
-@pytest.mark.parametrize("flags,slice_name", [
+# Each case keeps the ID it had while every flag below was refused. The
+# membership and closed-loop control flags have since been ported: their
+# cases now check that the flag runs and takes effect.
+FLAG_CASES = [
     (["--capacity", "6"], "membership"),
     (["--membership-scenario", "scale_up"], "membership"),
     (["--membership-k", "2"], "membership"),
@@ -90,11 +94,55 @@ def test_save_then_restore_and_trace_replay(tmp_path, capsys):
     (["--global-period", "2", "--comm-mode", "fused"], "hierarchical"),
     (["--coordinator-address", "localhost:1234"], "multi-process"),
     (["--num-processes", "2"], "multi-process"),
-    (["--process-id", "1"], "multi-process")])
-def test_unported_flags_are_refused_by_name(flags, slice_name):
-    with pytest.raises(NotImplementedError,
-                       match=f"{flags[0]} belongs to .*{slice_name}"):
-        ttrain.main(["--device", "cpu", "--rounds", "1"] + flags)
+    (["--process-id", "1"], "multi-process")]
+PORTED = ("membership", "closed-loop control")
+
+
+@pytest.mark.parametrize("flags,slice_name", [
+    pytest.param(f, s, id=f"flags{i}-{s}")
+    for i, (f, s) in enumerate(FLAG_CASES)])
+def test_unported_flags_are_refused_by_name(flags, slice_name, capsys):
+    argv = ["--device", "cpu", "--rounds", "2", "--workers", "2",
+            "--batch-size", "4"] + flags
+    if slice_name not in PORTED:
+        with pytest.raises(NotImplementedError,
+                           match=f"{flags[0]} belongs to .*{slice_name}"):
+            ttrain.main(argv)
+        return
+    sess, records = ttrain.main(argv)
+    out = capsys.readouterr().out
+    assert len(records) == 2 and sess.round == 2
+    if flags[0] == "--capacity":
+        assert sess.capacity == 6 and "k=2/6" in out
+    elif flags[1:] == ["scale_up"]:  # capacity 2·workers, grows mid-run
+        assert [r.num_active for r in records] == [2, 4]
+    elif flags[0] == "--controller":
+        assert sess.controller is not None and "[control] " in out
+    elif flags[0] == "--detector-blind":
+        assert sess.spec.detector_blind
+        assert not any(r.fail.any() for r in records)
+    else:  # no event inside two rounds: the pool stays as it was
+        assert sess.ecfg.membership_k == 2 or sess.capacity == 2
+        assert all(r.num_active == 2 for r in records)
+
+
+def test_membership_and_controller_trace_replay(tmp_path, capsys):
+    """``--dump-trace`` records the membership the run executed, a
+    controller's resizes included; ``--trace`` replays it to the same
+    master. Asserted on a 4 → 2 → 3 plan at capacity 4."""
+    trace = str(tmp_path / "run.jsonl")
+    args = ["--device", "cpu", "--rounds", "5", "--batch-size", "4",
+            "--workers", "4", "--membership-plan", "2:2,4:3",
+            "--comm-mode", "fused"]
+    sess, records = ttrain.main(args + ["--dump-trace", trace,
+                                        "--controller", "rules"])
+    assert [r.num_active for r in records] == [4, 4, 2, 2, 3]
+    replay, _ = ttrain.main(["--device", "cpu", "--batch-size", "4",
+                             "--comm-mode", "fused", "--trace", trace])
+    assert "coercing rounds/capacity to the recorded (5, 4)" in \
+        capsys.readouterr().out
+    assert torch.equal(replay.state["master"], sess.state["master"])
+    assert replay.schedule.active.tolist() == sess.schedule.active.tolist()
 
 
 def test_lm_training_is_refused_by_name():

@@ -30,6 +30,8 @@ A fault of the port (a wrong weight, a missing pull, a wrong step) moves
 quantities that the perturbation leaves in place, and fails. The test runs
 four checkpoint seeds in both comm modes, the two above among them.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,24 @@ def _kw(rounds, **kw):
                 seed=SEED, eval_every=1)
     base.update(kw)
     return base
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled(comm):
+    """A reference session per comm mode whose jitted round and eval the
+    file's reference sessions share: jit caches by the trainer object, so
+    sharing it compiles the round once per process instead of once per
+    session (three sessions a case, eight cases)."""
+    return RSession(RSpec(elastic=RElastic(num_workers=K, tau=TAU,
+                                           comm_mode=comm),
+                          **_kw(WARM_ROUNDS)))
+
+
+def _share_compiled(sess, comm):
+    shared = _compiled(comm)
+    sess.trainer = shared.trainer
+    sess._eval_loss, sess._eval_acc = shared._eval_loss, shared._eval_acc
+    return sess
 
 
 def _nudge(state, seed):
@@ -144,7 +164,8 @@ def test_rounds_after_restore_match_reference(tmp_path, comm, ck_seed):
                            save_path=path,
                            **_kw(2, seed=SEED + ck_seed))).run()
 
-    refs = [RSession(RSpec(elastic=RElastic(**ekw), **_kw(WARM_ROUNDS)))
+    refs = [_share_compiled(RSession(RSpec(elastic=RElastic(**ekw),
+                                           **_kw(WARM_ROUNDS))), comm)
             for _ in range(1 + SPREAD_RUNS)]
     probes = {r: torch.from_numpy(_round_probes(
         jax.random.fold_in(jax.random.key(SEED), r), K))
