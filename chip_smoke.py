@@ -54,6 +54,17 @@ failure:
    card against CPU from the same params and probes; masters agree;
 5g. the §VI grid: two ``paper_repro`` jobs on the card through
    ``experiments/grid.py``'s ``run_pool``, then ``report.repro_tables``;
+5h. hierarchy: ``main`` at full width, DEAHES-O fused, τ=4, 8 rounds, 16
+   slots in 4 racks with a global sync every 2 rounds (``--groups 4
+   --global-period 2``), in turns with the flat fused k=16 run (flat,
+   hierarchical, hierarchical, flat): the batched AdaHessian step 32
+   times, the batched exchange once per rack per round and once per
+   global sync (36; flat: 8), the round ms of both; ``--save`` read back
+   (sub-masters bit for bit) and a 2-round warm start at 2 racks; a
+   correlated-failure run whose outages darken racks at global syncs:
+   every dark rack refused there (g_h1 = g_h2 = 0) with its sub-master
+   bit-unchanged (``RackWatch``); card vs CPU at capacity 7 in racks of
+   3/2/2, master and sub-masters at phase 5's tolerance;
 6. serving path: qwen3-4b at full width (4,022,468,096 bf16 params drawn
    on the card) through ``launch/serve.py``'s continuous engine over a
    16-request bursty trace, counts zeroed just before: flash attention
@@ -64,8 +75,10 @@ failure:
    the CPU from the same params, prefill and 4 decode steps agree;
 8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
    ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
-   ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
-   ``{"ok": true, ...}`` line.
+   ``{"hierarchy": ...}`` line, a ``{"kernels": [...]}`` line (the
+   batched kernels' entries with their launches on the hierarchy run
+   too), the ``nvidia-smi`` line, and last the ``{"ok": true, ...}``
+   line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
 port's sources are not beside this script.
@@ -1027,6 +1040,271 @@ def grid_report(torch):
     return {"jobs": 2, "wall_s": wall, "runs": runs, "table_row": row[0]}
 
 
+class RackWatch:
+    """Checks the hierarchy's dark-rack contract on every hierarchical
+    ``ElasticTrainer`` round while installed: a rack none of whose members
+    syncs in a round (every one failed or vacant) leaves the round with
+    its sub-master bit-unchanged, and on a global-sync round reports
+    g_h1 = g_h2 = 0. Records (round, dark racks, sync) of each such round;
+    raises at the first breach."""
+
+    def __init__(self, torch):
+        from repro_torch.core.coordinator import ElasticTrainer
+
+        self.torch, self.cls = torch, ElasticTrainer
+        self.dark = []
+
+    def __enter__(self):
+        import numpy as np
+
+        torch, watch = self.torch, self
+        round_step = self.cls.round_step
+
+        def checked_round(trainer, state, inputs):
+            if not trainer._hier:
+                return round_step(trainer, state, inputs)
+            dead = inputs.fail if inputs.active is None else (
+                inputs.fail | ~inputs.active)
+            G = trainer._n_groups
+            dark = np.bincount(trainer._grp, weights=~dead, minlength=G) == 0
+            sync = (state["round"] + 1) % trainer.ecfg.global_period == 0
+            rows = torch.as_tensor(np.flatnonzero(dark),
+                                   device=state["submasters"].device)
+            before = state["submasters"][rows].clone()
+            out = round_step(trainer, state, inputs)
+            if not dark.any():
+                return out
+            metrics = out[1]
+            if not torch.equal(state["submasters"][rows], before):
+                raise AssertionError(f"round {inputs.round}: a dark rack's "
+                                     "sub-master moved")
+            if sync and (metrics["g_h1"][rows].any()
+                         or metrics["g_h2"][rows].any()):
+                raise AssertionError(f"round {inputs.round}: a dark rack "
+                                     "was weighted at the global sync")
+            watch.dark.append((inputs.round, np.flatnonzero(dark).tolist(),
+                               bool(sync)))
+            return out
+
+        self.saved = round_step
+        self.cls.round_step = checked_round
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.round_step = self.saved
+        return False
+
+
+def hierarchy_cli(torch):
+    """Phase 5h: hierarchical averaging on the card through
+    ``launch/train.py``'s ``main`` at PaperCNN's full width: DEAHES-O,
+    fused comm, τ=4, 8 rounds, 16 slots in 4 racks of 4 with a global
+    sync every 2 rounds (K1 once per τ-step over all 16 rows, K2 once per
+    rack per round and once per global sync: 32 and 36), beside the flat
+    fused k=16 run of the same flags (K2 once per round), in turns flat,
+    hierarchical, hierarchical, flat; a correlated-failure run (scenario
+    seed 7, the CLI's default ``--seed 0`` + 7, whose rack outages darken
+    racks 2-3 at the sync after round 1, racks 0-1 after round 3 and all
+    four after round 5) under :class:`RackWatch`; the first hierarchical
+    run's ``--save`` read back (sub-masters bit for bit) and warm-started
+    at 2 racks; card against CPU at capacity 7 in racks of 3/2/2."""
+    import dataclasses
+    import math
+
+    from repro_torch.api.session import ElasticSession
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.kernels import kernels, reset_launch_counts
+
+    base = ["--workers", "16", "--tau", "4", "--rounds", "8",
+            "--comm-mode", "fused"]
+    hier = ["--groups", "4", "--global-period", "2"]
+    want_hier = {"adahessian_update_batched": 32,
+                 "elastic_update_batched": 8 * 4 + 4}
+    want_flat = {"adahessian_update_batched": 32,
+                 "elastic_update_batched": 8}
+    out, steady, specs = {}, {"flat": [], "hier": []}, {}
+    with tempfile.TemporaryDirectory() as tmp, RackWatch(torch) as watch:
+        ck = os.path.join(tmp, "hier")
+        for i, kind in enumerate(("flat", "hier", "hier", "flat")):
+            argv = base + (hier if kind == "hier" else [])
+            if i == 1:
+                argv = argv + ["--save", ck]
+            sess, recs, _, text, moved = _cli_run(
+                torch, f"{kind} k=16 tau=4 ({i + 1} of 4)", argv,
+                want_hier if kind == "hier" else want_flat)
+            if not all(math.isfinite(r.loss) for r in recs):
+                raise AssertionError(f"{kind}: a non-finite loss")
+            steady[kind].append(statistics.median(r.round_ms
+                                                  for r in recs[1:]))
+            specs[kind] = sess.spec
+            if kind == "hier":
+                syncs = [bool(r.g_h2.any()) for r in recs]
+                if syncs != [r % 2 == 1 for r in range(8)]:
+                    raise AssertionError(f"hier: g_h2 non-zero on rounds "
+                                         f"{syncs}, not every second")
+                if "g_h2=" not in text:
+                    raise AssertionError("hier: no g_h2 on the round lines")
+                out["launches"] = moved
+                if i == 1:
+                    saved_subs = sess.state["submasters"].clone()
+                    saved_master = sess.state["master"].clone()
+                    hier_sess = sess
+        ratio = statistics.median(steady["hier"]) / statistics.median(
+            steady["flat"])
+        log(f"    round ms, flat / hier / hier / flat: {steady['flat'][0]:.2f}"
+            f" / {steady['hier'][0]:.2f} / {steady['hier'][1]:.2f} / "
+            f"{steady['flat'][1]:.2f}; hier over flat {ratio:.3f}")
+        # where a round's time goes: fresh sessions of both runs' specs,
+        # rounds 1 (a global sync) and 2 profiled after a warm-up round
+        out["profile"] = {}
+        for kind in ("flat", "hier"):
+            prof = ElasticSession(dataclasses.replace(specs[kind],
+                                                      save_path=None))
+            out["profile"][kind] = profile_window(
+                torch, f"{kind} k=16 rounds 1-2 (profiled)",
+                lambda: prof._run_chunk(1), 2)
+            del prof
+        # the checkpoint: sub-masters beside the master, read back bit for
+        # bit, then a warm start at 2 racks (racks 0-1 carried across)
+        back, _ = checkpoint.restore(os.path.join(ck, "submasters"))
+        got = hier_sess.layout.pack_tree(back, (4,), saved_subs.device)
+        if not torch.equal(got, saved_subs):
+            raise AssertionError("checkpoint: sub-masters not read back "
+                                 "bit for bit")
+        spec = hier_sess.spec
+        warm = ElasticSession(dataclasses.replace(
+            spec, rounds=2, save_path=None,
+            elastic=dataclasses.replace(spec.elastic, groups=2)))
+        meta = warm.restore(ck)
+        if not (torch.equal(warm.state["master"], saved_master)
+                and torch.equal(warm.state["submasters"], saved_subs[:2])
+                and meta["elastic"]["groups"] == 4):
+            raise AssertionError("warm start at 2 racks: master or "
+                                 "sub-masters differ from the saved ones")
+        reset_launch_counts()
+        warm_recs = warm.run()
+        warm_moved = {n: x.launches for n, x in kernels().items()
+                      if x.launches}
+        if warm_moved != {"adahessian_update_batched": 8,
+                          "elastic_update_batched": 2 * 2 + 1} or not all(
+                math.isfinite(r.loss) for r in warm_recs):
+            raise AssertionError(f"warm start: launches {warm_moved}, "
+                                 f"losses {[r.loss for r in warm_recs]}")
+        log(f"  checkpoint: 4 sub-masters read back bit for bit; warm start "
+            f"at 2 racks, 2 rounds: launches {warm_moved}, losses "
+            f"{[round(r.loss, 4) for r in warm_recs]}")
+        del hier_sess, warm, sess
+        # a correlated outage at a global sync
+        n_dark = len(watch.dark)
+        sess, recs, _, _, moved = _cli_run(
+            torch, "correlated k=16 tau=4", base + hier + [
+                "--failure-scenario", "correlated"], want_hier)
+        dark = watch.dark[n_dark:]
+        dark_syncs = [(r, racks) for r, racks, sync in dark if sync]
+        if not dark_syncs:
+            raise AssertionError("correlated: no global sync with a dark "
+                                 f"rack (dark rounds {dark})")
+        log(f"    dark racks at global syncs (round, racks): {dark_syncs}; "
+            "each refused (g_h1 = g_h2 = 0), its sub-master bit-unchanged")
+    out["rack_exchange"] = time_rack_exchange(torch)
+    out.update({
+        "config": {"workers": 16, "groups": 4, "global_period": 2, "tau": 4,
+                   "rounds": 8, "comm_mode": "fused"},
+        "round_ms": {"flat": steady["flat"], "hier": steady["hier"]},
+        "round_ms_hier_over_flat": ratio,
+        "warm_start_groups_2": {"launches": warm_moved,
+                                "losses": [r.loss for r in warm_recs]},
+        "correlated": {"scenario_seed": 7, "dark_syncs": dark_syncs,
+                       "launches": moved}})
+    out["card_vs_cpu"] = hierarchy_device_parity(torch)
+    return out
+
+
+def time_rack_exchange(torch):
+    """The rack exchange at the 5h run's shapes, device time
+    (``median_ms``): 4 launches of the batched kernel on (4, n) row blocks
+    against 4 sub-masters, beside one launch over all 16 rows against one
+    master, each with its byte bound (every input read once, every output
+    written once, at the card's memory rate of record)."""
+    from repro_torch.core.dynamic_weight import group_assignment
+    from repro_torch.kernels.elastic import ops as ela
+
+    bw = card_rates(torch.cuda.get_device_name(0))[1][0]
+    gen = torch.Generator("cuda").manual_seed(18)
+    w = torch.randn(16, N, generator=gen, device="cuda")
+    sm = torch.randn(4, N, generator=gen, device="cuda")
+    m = torch.randn(N, generator=gen, device="cuda")
+    h = torch.rand(2, 16, generator=gen, device="cuda") * 0.3
+    grp = group_assignment(16, 4)
+    out = {
+        "grouped_4_racks_ms": median_ms(
+            torch, lambda: ela.elastic_update_grouped(w, sm, h, grp)),
+        "grouped_bound_ms": ((2 * 16 + 2 * 4) * 4 * N + 8 * 16) / bw * 1e3,
+        "batched_k16_ms": median_ms(
+            torch, lambda: ela.elastic_update_batched(w, m, h)),
+        "batched_k16_bound_ms": ((2 * 16 + 2) * 4 * N + 8 * 16) / bw * 1e3}
+    log(f"  rack exchange, 16 rows in 4 racks: {out['grouped_4_racks_ms']:.4f}"
+        f" ms (bound {out['grouped_bound_ms']:.4f}); one batched launch over "
+        f"16 rows: {out['batched_k16_ms']:.4f} ms (bound "
+        f"{out['batched_k16_bound_ms']:.4f})")
+    return out
+
+
+def hierarchy_device_parity(torch):
+    """Phase 5h, last: 3 rounds of DEAHES-O at capacity 7 in racks of
+    3/2/2, a global sync every 2 rounds, on the card (kernels) and on the
+    CPU (plain versions) from the same carried params and probes; the
+    master and every sub-master agree at phase 5's tolerance
+    (``_leaf_parity``, norm-wise 1e-4)."""
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession, RunSpec
+    from repro_torch.configs.base import (ElasticConfig, OptimizerConfig,
+                                          get_config)
+    from repro_torch.kernels.flatten import FlatLayout
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.nn.param import init_tree
+
+    spec_tree = PaperCNN(get_config("paper-cnn")).spec
+    layout = FlatLayout(spec_tree)
+    params = init_tree(torch.Generator().manual_seed(6), spec_tree)
+
+    def probes(device):
+        def fn(r, t, i):
+            rng = np.random.default_rng([14, r, t, i])
+            z = rng.integers(0, 2, (1, layout.n)).astype(np.float32) * 2 - 1
+            return torch.from_numpy(z).to(device)
+        return fn
+
+    states = {}
+    for device in ("cuda", "cpu"):
+        spec = RunSpec(
+            optimizer=OptimizerConfig(name="adahessian"),
+            elastic=ElasticConfig(num_workers=7, tau=1, comm_mode="fused",
+                                  groups=3, global_period=2),
+            rounds=3, batch_size=32, n_data=2000, n_test=100, device=device)
+        sess = ElasticSession(spec, params=params, probe_fn=probes(device))
+        recs = sess.run()
+        states[device] = {key: sess.state[key].cpu().double()
+                          for key in ("master", "submasters")}
+        states[device]["g_h2"] = [r.g_h2.tolist() for r in recs]
+    got, want = states["cuda"], states["cpu"]
+    if [any(x) for x in got["g_h2"]] != [False, True, False]:
+        raise AssertionError(f"card: g_h2 per round {got['g_h2']}")
+    worst = [_leaf_parity(torch, layout, got["master"], want["master"],
+                          "hierarchy master", 1e-4)]
+    for g in range(3):
+        worst.append(_leaf_parity(torch, layout, got["submasters"][g],
+                                  want["submasters"][g],
+                                  f"hierarchy sub-master {g}", 1e-4))
+    worst_norm = max(w[0] for w in worst)
+    worst_abs = max(w[1] for w in worst)
+    log(f"  capacity 7, racks 3/2/2, 3 rounds: cuda vs cpu master and "
+        f"sub-masters max abs err {worst_abs:.3g}, worst leaf norm-wise "
+        f"{worst_norm:.3g}")
+    return {"max_abs_err": worst_abs, "worst_leaf_norm_rel": worst_norm}
+
+
 class WatchedLM:
     """Wraps a ``DecoderLM`` for the engines: every ``prefill`` /
     ``decode_step`` is timed between two ``synchronize()`` calls (the
@@ -1346,6 +1624,9 @@ def main() -> int:
     membership["card_vs_cpu"] = membership_device_parity(torch)
     log("[5g] §VI grid (2 jobs on the card) and report")
     membership["grid"] = grid_report(torch)
+    log("[5h] hierarchy at full width: launch/train.py main, 16 slots in "
+        "4 racks, global sync every 2 rounds")
+    hierarchy = hierarchy_cli(torch)
 
     log("[6] serving path: qwen3-4b at full width through launch/serve.py")
     serve_counts, serve_stats = serving_path(torch)
@@ -1355,6 +1636,8 @@ def main() -> int:
             serve_counts if name == "flash_attention_fwd"
             else plain_counts if name == "adahessian_update_flat"
             else totals)[name]
+        if name in hierarchy["launches"]:
+            entry["hierarchy_launches"] = hierarchy["launches"][name]
 
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
     serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
@@ -1364,6 +1647,7 @@ def main() -> int:
     print(json.dumps({"serving": serve_stats}))
     print(json.dumps({"membership": membership}))
     print(json.dumps({"control": control}))
+    print(json.dumps({"hierarchy": hierarchy}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,13 +39,20 @@ rule controller of ``repro_torch.control``) see every record
 schedule into the records, so a controller runs on observable telemetry
 only.
 
+Hierarchical averaging (``ElasticConfig.groups`` / ``global_period``,
+fused comm): every :class:`RoundRecord` carries the racks' (G,) ``g_u``,
+``g_score``, ``g_h1``, ``g_h2`` (zero off the global-sync rounds);
+``save`` writes the sub-masters as a sibling ``submasters`` checkpoint
+before the main manifest, and ``restore`` re-seats them and the racks'
+u-histories, also at another rack count.
+
 Not ported yet, refused by name: LM training (and, in
-``repro_torch.core.coordinator.check_slice``, hierarchy and sharded
-placement).
+``repro_torch.core.coordinator.check_slice``, sharded placement).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Iterator, List, Optional
@@ -141,7 +148,9 @@ class RoundRecord:
     round — all-False under ``RunSpec.detector_blind`` — the live mask
     ``active``, eval metrics on eval rounds, and the chunk's timings).
     Vacant slots report zeroed diagnostics. In plain mode the diagnostics
-    are (1,) zeros and ``loss_w`` is None."""
+    are (1,) zeros and ``loss_w`` is None. A hierarchical run adds the
+    racks' (G,) ``g_u/g_score/g_h1/g_h2``, zero on rounds without a global
+    sync and for a fully vacant rack; ``None`` on flat runs."""
 
     round: int
     loss: float
@@ -160,6 +169,11 @@ class RoundRecord:
     dispatch_ms: float = 0.0
     # (k,) bool byzantine slots of the round (all False without them)
     corrupt: Optional[np.ndarray] = None
+    # (G,) rack diagnostics of a hierarchical run
+    g_u: Optional[np.ndarray] = None
+    g_score: Optional[np.ndarray] = None
+    g_h1: Optional[np.ndarray] = None
+    g_h2: Optional[np.ndarray] = None
 
     @property
     def num_active(self) -> int:
@@ -292,18 +306,31 @@ class ElasticSession:
              extra_metadata: Optional[dict] = None) -> str:
         """Save the master params with the reference's metadata:
         ``{"rounds", "arch", "scenario"}``, plus, for an elastic run, the
-        per-slot manifest (capacity, active mask, u-history) that
-        :meth:`restore` re-seats."""
+        per-slot manifest (capacity, active mask, u-history; a hierarchy
+        adds its rack count, global period and rack u-histories) that
+        :meth:`restore` re-seats. A hierarchy's sub-masters go to the
+        sibling checkpoint ``<path>/submasters`` (a param tree with a
+        leading (G,) axis), written before the main manifest so that the
+        manifest, written last, implies both; the main tree stays the bare
+        master."""
         path = path or self.spec.save_path
         if not path:
             raise ValueError("no save path: pass one or set RunSpec.save_path")
         meta = {"rounds": self.round, "arch": self.model_cfg.name,
                 "scenario": ("none" if self.spec.plain
                              else self.ecfg.failure_scenario)}
+        hier = not self.spec.plain and self.trainer._hier
         if not self.spec.plain:
             meta["elastic"] = checkpoint.elastic_manifest(
-                self._active, self.state["u_hist"].cpu().numpy())
+                self._active, self.state["u_hist"].cpu().numpy(),
+                **({"groups": self.trainer._n_groups,
+                    "global_period": self.ecfg.global_period,
+                    "g_u_hist": self.state["g_u_hist"].cpu().numpy()}
+                   if hier else {}))
         meta.update(extra_metadata or {})
+        if hier:
+            checkpoint.save(os.path.join(path, "submasters"),
+                            self.layout.to_numpy(self.state["submasters"]))
         checkpoint.save(path, self.master_tree(), metadata=meta)
         return path
 
@@ -316,8 +343,11 @@ class ElasticSession:
         checkpointed: a restore is a pool-wide rejoin); the saved live
         slots' u-histories are re-seated into this session's live slots in
         order (``checkpoint.reseat_u_hist``), also when the two capacities
-        differ; any further live slot is a joiner with a blank history.
-        Raises on an architecture mismatch."""
+        differ; any further live slot is a joiner with a blank history. A
+        hierarchical session re-seats the saved sub-masters and rack
+        u-histories in rack order, also at another rack count (extra racks
+        start from the master; a flat checkpoint seats every rack from
+        it). Raises on an architecture mismatch."""
         arch = checkpoint.read_metadata(path).get("arch")
         if arch is not None and arch != self.model_cfg.name:
             raise ValueError(
@@ -337,6 +367,18 @@ class ElasticSession:
             self.ecfg.score_window)
         state = self.trainer.init_state(tree)
         state["u_hist"] = torch.as_tensor(u_hist, device=self.device)
+        if self.trainer._hier:
+            sub_path = os.path.join(path, "submasters")
+            saved = None
+            if os.path.exists(os.path.join(sub_path, "manifest.json")):
+                saved = checkpoint.restore(sub_path)[0]
+            n_groups = self.trainer._n_groups
+            state["submasters"] = self.layout.pack_tree(
+                checkpoint.reseat_submasters(saved, tree, n_groups),
+                (n_groups,), self.device)
+            state["g_u_hist"] = torch.as_tensor(checkpoint.reseat_group_hist(
+                (meta.get("elastic") or {}).get("g_u_hist"), n_groups,
+                self.ecfg.score_window), device=self.device)
         self.state = state
         return meta
 
@@ -544,7 +586,10 @@ class ElasticSession:
                 active=(self._membership[r] if self._membership is not None
                         else np.ones(self.capacity, bool)),
                 loss_w=m["loss_w"][i],
-                round_ms=round_ms, dispatch_ms=dispatch_ms))
+                round_ms=round_ms, dispatch_ms=dispatch_ms,
+                **({key: m[key][i] for key in
+                    ("g_u", "g_score", "g_h1", "g_h2")} if "g_u" in m
+                   else {})))
         return records
 
     def _run_chunk_plain(self, n: int) -> List[RoundRecord]:

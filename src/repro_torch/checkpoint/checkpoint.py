@@ -12,9 +12,11 @@ its true dtype in the manifest, and narrowed back on restore (exact).
 A tree is a nested dict (lists and tuples too) of torch tensors, on any
 device, or numpy arrays; ``restore`` returns torch tensors.
 :func:`elastic_manifest` records the worker pool's per-slot active mask and
-u-history beside the master, and :func:`reseat_u_hist` re-seats those
-histories into a pool of another capacity. ``ElasticSession.save`` /
-``restore`` drive both.
+u-history beside the master (a hierarchy adds its rack count, global
+period and rack u-histories), and :func:`reseat_u_hist` re-seats those
+histories into a pool of another capacity; :func:`reseat_group_hist` and
+:func:`reseat_submasters` do the same for a hierarchy's racks at another
+rack count. ``ElasticSession.save`` / ``restore`` drive them.
 """
 from __future__ import annotations
 
@@ -239,16 +241,48 @@ def reseat_u_hist(elastic_meta: Optional[dict], capacity: int, active_now,
     return out
 
 
-def reseat_group_hist(*args, **kwargs):
-    raise NotImplementedError(
-        "reseat_group_hist belongs to hierarchical averaging, which is not "
-        "ported to PyTorch yet")
+def reseat_group_hist(g_u_hist, n_groups: int, window: int,
+                      fill: float = U_HIST_FILL) -> np.ndarray:
+    """Re-seat a checkpoint's rack u-histories into ``n_groups`` racks: the
+    first ``min(saved, n_groups)`` racks carry theirs across (racks are
+    contiguous slot blocks under any count, so low racks map onto low
+    racks), extra racks start blank; windows align on the newest entries.
+    ``None`` or a malformed history (a flat checkpoint) gives all-blank.
+    Returns the (n_groups, window) float32 ``g_u_hist``."""
+    out = np.full((n_groups, window), fill, np.float32)
+    if g_u_hist is None:
+        return out
+    g_u_hist = np.asarray(g_u_hist, np.float32)
+    if g_u_hist.ndim != 2:
+        return out
+    g = min(n_groups, g_u_hist.shape[0])
+    w = min(window, g_u_hist.shape[1])
+    if g and w:
+        out[:g, window - w:] = g_u_hist[:g, g_u_hist.shape[1] - w:]
+    return out
 
 
-def reseat_submasters(*args, **kwargs):
-    raise NotImplementedError(
-        "reseat_submasters belongs to hierarchical averaging, which is not "
-        "ported to PyTorch yet")
+def reseat_submasters(saved, master, n_groups: int):
+    """Re-seat saved sub-masters into ``n_groups`` racks: rack g takes the
+    saved rack g's sub-master while there is one, a master copy otherwise
+    (a new rack starts from the master, like a joining worker);
+    ``saved=None`` (a flat checkpoint) seats every rack from the master.
+    ``saved`` and ``master`` are trees of one structure, of tensors or
+    arrays; returns a tree of float32 tensors with a leading (n_groups,)
+    axis, on the master leaves' device."""
+    flat_m = _flatten_with_paths(master)
+    flat_s = None if saved is None else _flatten_with_paths(saved)
+    out = {}
+    for p, m in flat_m.items():
+        m = torch.as_tensor(m, dtype=torch.float32)
+        seat = m.expand(n_groups, *m.shape).clone()
+        if flat_s is not None:
+            sm = torch.as_tensor(flat_s[p], dtype=torch.float32,
+                                 device=m.device)
+            g = min(n_groups, sm.shape[0])
+            seat[:g] = sm[:g]
+        out[p] = seat
+    return _unflatten_into(master, out)
 
 
 def _unflatten_paths(flat: Dict[str, Any]):

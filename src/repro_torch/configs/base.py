@@ -8,10 +8,9 @@ an MoE config by name); ``use_pallas`` is not carried across — the
 device of the tensors picks kernel or plain version. ``get_config``
 resolves the ported architectures and refuses every other by name.
 
-Configs are plain data: features the port does not run yet (hierarchy,
-sharded placement) are still valid *configurations*; the
-trainer and the session raise ``NotImplementedError`` for them when asked
-to run one.
+Configs are plain data: a feature the port does not run yet (sharded
+placement) is still a valid *configuration*; the trainer and the session
+raise ``NotImplementedError`` for it when asked to run one.
 """
 from __future__ import annotations
 

@@ -49,7 +49,18 @@ from the master before the local phase, the same operation as a
 crash-restart rejoin. With ``active`` / ``join`` left ``None`` (a fixed-k
 run) nothing is masked, and an all-True mask gives the same bits.
 
-Out of this slice, each refused by name: hierarchy, sharded placement.
+Hierarchical averaging (tree-EASGD; ``ElasticConfig.groups`` /
+``global_period``, fused comm only): the slot axis is split into G
+contiguous racks (``dynamic_weight.group_assignment``), each with a
+sub-master in ``state["submasters"]`` (G, n). Every round each worker
+scores against its rack's sub-master and exchanges with it (one batched
+elastic kernel per rack, on the rack's row block), with event-order
+weights per rack. Every ``global_period`` rounds the sub-masters play the
+worker role against the master: their own u-history ``g_u_hist``, scores,
+h1/h2 and one batched exchange. Restarts and joins still re-seat from the
+master.
+
+Out of this slice, refused by name: sharded placement.
 """
 from __future__ import annotations
 
@@ -64,7 +75,8 @@ from repro_torch.configs.base import ElasticConfig, OptimizerConfig
 from repro_torch.core import dynamic_weight as dw
 from repro_torch.device import resolve_device
 from repro_torch.kernels.elastic.ops import (elastic_update,
-                                             elastic_update_batched)
+                                             elastic_update_batched,
+                                             elastic_update_grouped)
 from repro_torch.kernels.flatten import FlatLayout
 from repro_torch.nn.param import init_tree
 from repro_torch.optim.adahessian import spatial_average
@@ -148,15 +160,11 @@ class GaussianNoise:
 
 
 def check_slice(ecfg: ElasticConfig) -> None:
-    """Refuse, by name, the features this port does not run yet."""
-    missing = []
-    if ecfg.hierarchical:
-        missing.append("hierarchical averaging (groups / global_period)")
+    """Refuse, by name, the features this port does not run yet (sharded
+    placement, and with it sharded hierarchy)."""
     if ecfg.placement != "single":
-        missing.append("sharded placement")
-    if missing:
         raise NotImplementedError(
-            "not ported to PyTorch yet: " + "; ".join(missing))
+            "not ported to PyTorch yet: sharded placement")
 
 
 @dataclasses.dataclass(eq=False)
@@ -171,9 +179,28 @@ class ElasticTrainer:
     # The byzantine-noise seam; None draws GaussianNoise seeded with ``seed``.
     noise_fn: Optional[NoiseFn] = None
     seed: int = 0
+    # Hierarchical averaging: None follows ``ecfg.hierarchical`` (groups > 1
+    # or global_period > 1); an explicit True forces the hierarchical state
+    # and comm phase even at groups=1, global_period=1, where the round is
+    # the flat fused one bit for bit (the degenerate proof runs this).
+    hierarchical: Optional[bool] = None
 
     def __post_init__(self):
         check_slice(self.ecfg)
+        self._hier = (self.ecfg.hierarchical if self.hierarchical is None
+                      else bool(self.hierarchical))
+        if self._hier:
+            if self.ecfg.comm_mode != "fused":
+                raise ValueError(
+                    "hierarchical averaging needs comm_mode='fused' (the "
+                    "sequential scan has no grouped equivalent)")
+            if self.ecfg.staleness:
+                raise ValueError(
+                    "hierarchical averaging is incompatible with "
+                    "staleness=1 (there is no stale sub-master snapshot)")
+            # static slot → rack map; rack count after clamping to capacity
+            self._grp = dw.group_assignment(self.ecfg.cap, self.ecfg.groups)
+            self._n_groups = int(self._grp.max()) + 1
         self.device = resolve_device(self.device)
         self.opt = make_optimizer(self.opt_cfg)
         self.layout = FlatLayout(self.model.spec)
@@ -198,7 +225,7 @@ class ElasticTrainer:
                                self.model.spec)
         k, n = self.ecfg.cap, self.layout.n
         master = self.layout.pack_tree(params, device=self.device)
-        return {
+        state = {
             "workers": master.expand(k, n).clone(),
             "opt": self.opt.init(k, n, self.device),
             "master": master,
@@ -210,19 +237,34 @@ class ElasticTrainer:
                                  dtype=torch.float32, device=self.device),
             "round": 0,
         }
+        if self._hier:
+            # one sub-master per rack, a master copy like the workers; the
+            # racks' u-history has the workers' window
+            g = self._n_groups
+            state["submasters"] = master.expand(g, n).clone()
+            state["g_u_hist"] = torch.full(
+                (g, self.ecfg.score_window), -30.0, dtype=torch.float32,
+                device=self.device)
+        return state
 
     def state_to_numpy(self, state) -> Dict[str, Any]:
         """The full state as the reference's state tree of numpy arrays:
         ``workers``, ``opt`` (``count`` plus ``m``/``v`` trees),
-        ``master``, ``master_prev``, ``u_hist``, ``round``."""
+        ``master``, ``master_prev``, ``u_hist``, ``round``, and for a
+        hierarchical trainer ``submasters`` (a param tree with a leading
+        (G,) axis) and ``g_u_hist``."""
         lay = self.layout
         opt = {key: (val.cpu().numpy() if key == "count" else lay.to_numpy(val))
                for key, val in state["opt"].items()}
-        return {"workers": lay.to_numpy(state["workers"]), "opt": opt,
-                "master": lay.to_numpy(state["master"]),
-                "master_prev": lay.to_numpy(state["master_prev"]),
-                "u_hist": state["u_hist"].cpu().numpy(),
-                "round": np.int32(state["round"])}
+        out = {"workers": lay.to_numpy(state["workers"]), "opt": opt,
+               "master": lay.to_numpy(state["master"]),
+               "master_prev": lay.to_numpy(state["master_prev"]),
+               "u_hist": state["u_hist"].cpu().numpy(),
+               "round": np.int32(state["round"])}
+        if self._hier:
+            out["submasters"] = lay.to_numpy(state["submasters"])
+            out["g_u_hist"] = state["g_u_hist"].cpu().numpy()
+        return out
 
     def state_from_numpy(self, tree) -> Dict[str, Any]:
         """Inverse of :meth:`state_to_numpy`: a reference state tree (numpy
@@ -236,13 +278,20 @@ class ElasticTrainer:
         if set(opt) != set(self.opt.init(1, 1, "cpu")):
             raise ValueError(f"opt state keys {sorted(opt)} do not match "
                              f"optimizer {self.opt_cfg.name!r}")
-        return {"workers": lay.pack_tree(tree["workers"], (k,), dev),
-                "opt": opt,
-                "master": lay.pack_tree(tree["master"], device=dev),
-                "master_prev": lay.pack_tree(tree["master_prev"], device=dev),
-                "u_hist": torch.tensor(np.asarray(tree["u_hist"]),
-                                       dtype=torch.float32, device=dev),
-                "round": int(tree["round"])}
+        hist = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
+                                      device=dev)
+        state = {"workers": lay.pack_tree(tree["workers"], (k,), dev),
+                 "opt": opt,
+                 "master": lay.pack_tree(tree["master"], device=dev),
+                 "master_prev": lay.pack_tree(tree["master_prev"],
+                                              device=dev),
+                 "u_hist": hist(tree["u_hist"]),
+                 "round": int(tree["round"])}
+        if self._hier:
+            state["submasters"] = lay.pack_tree(
+                tree["submasters"], (self._n_groups,), dev)
+            state["g_u_hist"] = hist(tree["g_u_hist"])
+        return state
 
     # -- failure-scenario state transitions --------------------------------------
     def apply_restarts(self, state, restart: np.ndarray) -> None:
@@ -374,7 +423,9 @@ class ElasticTrainer:
                    straggle: Optional[np.ndarray] = None,
                    active: Optional[np.ndarray] = None):
         """Elastic exchange under the fail mask (True suppresses a worker's
-        sync), in place; returns the (k,) diagnostics ``u, score, h1, h2``.
+        sync), in place; returns the (k,) diagnostics ``u, score, h1, h2``
+        (a hierarchical trainer adds its racks' (G,) ``g_u, g_score, g_h1,
+        g_h2``, zero on rounds without a global sync).
 
         ``straggle``: straggling workers score against the previous round's
         master snapshot. ``active``: a vacant slot is not a failed worker —
@@ -385,7 +436,10 @@ class ElasticTrainer:
         if failed_recent is None:
             failed_recent = np.zeros_like(fail)
         fr = torch.as_tensor(failed_recent, device=self.device)
-        if self.ecfg.comm_mode == "fused":
+        if self._hier:
+            metrics = self._comm_phase_hier(state, fail, failed_recent, fr,
+                                            straggle, active)
+        elif self.ecfg.comm_mode == "fused":
             metrics = self._comm_phase_fused(state, fail, fr, straggle,
                                              active)
         else:
@@ -470,6 +524,100 @@ class ElasticTrainer:
         state["master_prev"] = round_start
         state["u_hist"] = hist
         return {"u": u, "score": a, "h1": w1, "h2": w2}
+
+    def _comm_phase_hier(self, state, fail, failed_recent, fr, straggle,
+                         active):
+        """Two-level hierarchical exchange (``repro.core.coordinator.
+        ElasticTrainer._comm_phase_hier``, step for step).
+
+        Rack level, every round: each worker scores against its rack's
+        sub-master (the ``score_clip`` quarantine re-seats it to that
+        sub-master), h1/h2 as in the flat fused phase over the whole pool,
+        ``dead = fail | ~active`` zeroed, then the rack exchange with
+        per-rack event-order weights: one batched kernel per rack.
+
+        Global level, on rounds with ``(round + 1) % global_period == 0``:
+        the sub-masters score against the master with their own
+        ``g_u_hist`` (pushed only for racks with a live member), h1/h2 over
+        the racks, zero for a rack none of whose members synced this round,
+        then one batched exchange of the (G, n) sub-masters with the master.
+        Off-cycle rounds touch neither master nor ``g_u_hist`` and report
+        zero ``g_*``. Rack liveness comes from the host masks. Stragglers
+        score against their live sub-master (there is no stale one).
+
+        Degenerate topology (one rack, global period 1): the flat fused
+        phase, bit for bit, with the lone sub-master set to the new master
+        and zero (1,) ``g_*``."""
+        ecfg, lay, dev = self.ecfg, self.layout, self.device
+        G = self._n_groups
+        if G == 1 and ecfg.global_period == 1:
+            metrics = self._comm_phase_fused(state, fail, fr, straggle,
+                                             active)
+            state["submasters"].copy_(state["master"][None])
+            z = torch.zeros(1, dtype=torch.float32, device=dev)
+            metrics.update(g_u=z, g_score=z, g_h1=z, g_h2=z)
+            return metrics
+        grp = self._grp
+        master, workers = state["master"], state["workers"]
+        subs = state["submasters"]
+        u = dw.log_distance_grouped(workers, subs, grp, lay)
+        if ecfg.score_clip > 0:
+            # quarantine as in the flat fused phase; the re-seat target is
+            # the worker's sub-master, and the recorded u is that of the
+            # re-seated worker (log 1e-30)
+            quar = ~torch.isfinite(u)
+            for g, (s, e) in enumerate(dw.rack_bounds(grp, G)):
+                workers[s:e] = torch.where(quar[s:e, None], subs[g],
+                                           workers[s:e])
+            u = torch.where(quar, torch.log(torch.tensor(
+                1e-30, dtype=torch.float32, device=dev)), u)
+        active_t = (None if active is None
+                    else torch.as_tensor(active, device=dev))
+        hist = dw.push_history(state["u_hist"], u)
+        a = dw.raw_score(hist, self._c)
+        w1, w2 = dw.weights_for(ecfg, a, failed_recently=fr, u=u,
+                                live=active_t)
+        dead = fail if active is None else fail | ~active
+        dead_t = torch.as_tensor(dead, device=dev)
+        w1 = torch.where(dead_t, 0.0, w1)
+        w2 = torch.where(dead_t, 0.0, w2)
+        if active is not None:
+            hist = torch.where(active_t[:, None], hist, state["u_hist"])
+            u = torch.where(active_t, u, 0.0)
+            a = torch.where(active_t, a, 0.0)
+        g2 = dw.master_schedule_weights_grouped(w2, grp)
+        elastic_update_grouped(workers, subs, torch.stack([w1, g2]), grp)
+        state["u_hist"] = hist
+
+        # rack liveness from the host masks
+        seg_any = lambda b: np.bincount(grp, weights=np.asarray(b, bool),
+                                        minlength=G) > 0
+        g_synced = seg_any(~dead)  # some member exchanged
+        g_live = np.ones(G, bool) if active is None else seg_any(active)
+        g_fr = seg_any(failed_recent)
+        round_start = master.clone()
+        z = torch.zeros(G, dtype=torch.float32, device=dev)
+        g_u = g_a = gw1 = gw2 = z
+        if (state["round"] + 1) % ecfg.global_period == 0:
+            live_t = torch.as_tensor(g_live, device=dev)
+            g_u = dw.log_distance(subs, master, lay)
+            g_hist = dw.push_history(state["g_u_hist"], g_u)
+            g_hist = torch.where(live_t[:, None], g_hist, state["g_u_hist"])
+            g_a = dw.raw_score(g_hist, self._c)
+            gw1, gw2 = dw.weights_for(
+                ecfg, g_a, failed_recently=torch.as_tensor(g_fr, device=dev),
+                u=g_u, live=live_t)
+            g_dead = torch.as_tensor(~g_synced, device=dev)
+            gw1 = torch.where(g_dead, 0.0, gw1)
+            gw2 = torch.where(g_dead, 0.0, gw2)
+            elastic_update_batched(subs, master, torch.stack(
+                [gw1, dw.master_schedule_weights(gw2)]))
+            g_u = torch.where(live_t, g_u, 0.0)
+            g_a = torch.where(live_t, g_a, 0.0)
+            state["g_u_hist"] = g_hist
+        state["master_prev"] = round_start
+        return {"u": u, "score": a, "h1": w1, "h2": w2,
+                "g_u": g_u, "g_score": g_a, "g_h1": gw1, "g_h2": gw2}
 
     # -- full round ---------------------------------------------------------------
     def round_step(self, state, inputs: RoundInputs):

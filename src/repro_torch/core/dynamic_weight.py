@@ -21,13 +21,19 @@ with threshold k < 0. Worker update uses h1, master update uses h2
 u_zclip robust z-scores above the pool (:func:`robust_zscore`; batched
 scoring only, as in the reference).
 
+Hierarchical averaging (tree-EASGD) adds the rack helpers: the static
+slot → rack map :func:`group_assignment`, the per-rack event-order weights
+:func:`master_schedule_weights_grouped`, and :func:`log_distance_grouped`,
+each worker measured against its own rack's sub-master.
+
 Every quantity stays on the buffers' device: the comm phase reads nothing
 back to the host. The expressions follow ``repro.core.dynamic_weight``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ElasticConfig
@@ -60,6 +66,41 @@ def log_distance(worker: torch.Tensor, master: torch.Tensor,
     return torch.log(torch.sqrt(sq) + 1e-30)
 
 
+def group_assignment(capacity: int, groups: int) -> np.ndarray:
+    """Static slot → rack map of the hierarchy: ``capacity`` slots split
+    into ``min(groups, capacity)`` contiguous near-equal blocks,
+    ``grp[i] = i·G // C`` (numpy int32; the same split the correlated
+    failure scenario uses, so a rack outage takes out whole racks)."""
+    g = min(groups, capacity)
+    return ((np.arange(capacity) * g) // capacity).astype(np.int32)
+
+
+def rack_bounds(grp: np.ndarray, n_groups: int) -> List[Tuple[int, int]]:
+    """``[(start, end), ...]``: the row block of each rack of ``grp``.
+    Raises unless ``grp`` is ``n_groups`` contiguous, non-empty racks
+    numbered 0, 1, … in slot order: the grouped exchange runs one batched
+    update per block."""
+    grp = np.asarray(grp).reshape(-1)
+    starts = np.flatnonzero(np.r_[True, grp[1:] != grp[:-1]])
+    ends = np.r_[starts[1:], grp.shape[0]]
+    if not np.array_equal(grp[starts], np.arange(n_groups)):
+        raise ValueError(f"rack map {grp.tolist()} is not {n_groups} "
+                         "contiguous racks numbered in slot order")
+    return [(int(s), int(e)) for s, e in zip(starts, ends)]
+
+
+def log_distance_grouped(workers: torch.Tensor, submasters: torch.Tensor,
+                         grp: np.ndarray, layout: FlatLayout
+                         ) -> torch.Tensor:
+    """(k,) u of every worker against its own rack's sub-master: one
+    :func:`log_distance` per rack over the rack's rows, so the per-leaf
+    summation order is :func:`log_distance`'s and no (k, n) gather of the
+    sub-masters is built."""
+    return torch.cat([log_distance(workers[s:e], submasters[g], layout)
+                      for g, (s, e) in enumerate(
+                          rack_bounds(grp, submasters.shape[0]))])
+
+
 def push_history(hist: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """hist: (..., p) oldest→newest rolling window."""
     return torch.cat([hist[..., 1:], u[..., None]], dim=-1)
@@ -88,6 +129,19 @@ def master_schedule_weights(w2: torch.Tensor) -> torch.Tensor:
     rev = (1.0 - w2).flip(0)
     excl = torch.cat([torch.ones_like(rev[:1]), torch.cumprod(rev[:-1], 0)])
     return w2 * excl.flip(0)
+
+
+def master_schedule_weights_grouped(w2: torch.Tensor, grp: np.ndarray
+                                    ) -> torch.Tensor:
+    """Per-rack event-order weights g_i = h2_i · Π_{j>i, grp[j]=grp[i]}
+    (1 − h2_j): each sub-master's reduction reproduces a sequential scan of
+    its own rack. The reference's masked O(k²) product over scalars."""
+    grp = torch.as_tensor(np.asarray(grp), device=w2.device)
+    idx = torch.arange(w2.shape[0], device=w2.device)
+    later_same = (idx[None, :] > idx[:, None]) & (grp[None, :] == grp[:, None])
+    om = 1.0 - w2
+    excl = torch.prod(torch.where(later_same, om[None, :], 1.0), dim=1)
+    return w2 * excl
 
 
 def _nanmedian(x: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,14 @@ channels, with ``--score-clip`` and ``--u-zclip`` as the master's clamps.
 ``--controller rules`` attaches the detector → policy → actuator loop of
 ``repro_torch.control``, which evicts and readmits slots between chunks
 from observable telemetry only, and ``--detector-blind`` zeroes the
-ground-truth masks echoed into the printed records. The flags of slices
-not ported yet raise ``NotImplementedError`` naming their slice:
+ground-truth masks echoed into the printed records. ``--groups G
+--global-period P`` (with ``--comm-mode fused``) runs hierarchical
+averaging: G racks, each with a sub-master its workers exchange with every
+round, and a global sync of the sub-masters with the master every P
+rounds; the round line adds the racks' ``g_h2`` on sync rounds. The flags
+of the slice not ported yet raise ``NotImplementedError`` naming it:
 ``--placement sharded`` and ``--coordinator-address`` /
-``--num-processes`` / ``--process-id`` (multi-GPU placement),
-``--groups`` and ``--global-period`` (hierarchy).
+``--num-processes`` / ``--process-id`` (multi-GPU placement).
 
     python -m repro_torch.launch.train --workers 8 --tau 4 --rounds 8
     python -m repro_torch.launch.train --device cpu --plain --rounds 5
@@ -32,6 +35,8 @@ not ported yet raise ``NotImplementedError`` naming their slice:
         --membership-scenario scale_up --membership-round 3 --rounds 8
     python -m repro_torch.launch.train --workers 8 --controller rules \
         --failure-scenario crash_restart --rounds 12
+    python -m repro_torch.launch.train --workers 16 --tau 4 --rounds 8 \
+        --comm-mode fused --groups 4 --global-period 2
 """
 from __future__ import annotations
 
@@ -54,9 +59,6 @@ def _refuse_unported(args) -> None:
     unported = [
         ("--placement", args.placement != "single",
          "multi-GPU placement (sharded)"),
-        ("--groups", args.groups != 1, "hierarchical averaging"),
-        ("--global-period", args.global_period != 1,
-         "hierarchical averaging"),
         ("--coordinator-address", args.coordinator_address is not None,
          "multi-GPU placement (multi-process)"),
         ("--num-processes", args.num_processes != 1,
@@ -158,9 +160,14 @@ def main(argv=None):
                     choices=("single", "sharded"),
                     help="worker placement (sharded: not ported yet)")
     ap.add_argument("--groups", type=int, default=1,
-                    help="hierarchical averaging racks (not ported yet)")
+                    help="hierarchical averaging: split the slot axis into "
+                         "this many contiguous racks, each with a "
+                         "sub-master its workers exchange with every round "
+                         "(needs --comm-mode fused; 1 = flat)")
     ap.add_argument("--global-period", type=int, default=1,
-                    help="rounds between global syncs (not ported yet)")
+                    help="hierarchical averaging: rounds between global "
+                         "syncs of the sub-masters with the master "
+                         "(needs --comm-mode fused)")
     ap.add_argument("--coordinator-address", default=None,
                     metavar="HOST:PORT",
                     help="multi-process mesh (not ported yet)")
@@ -226,7 +233,8 @@ def main(argv=None):
         hetero_slow_frac=args.hetero_slow_frac,
         hetero_slow_scale=args.hetero_slow_scale,
         membership_scenario=membership, membership_k=args.membership_k,
-        membership_round=args.membership_round, membership_plan=plan)
+        membership_round=args.membership_round, membership_plan=plan,
+        groups=args.groups, global_period=args.global_period)
     spec = RunSpec(
         schedule=schedule, arch=args.arch, smoke=args.smoke,
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
@@ -259,6 +267,8 @@ def main(argv=None):
             extra += f" restart={rec.restart.astype(int).tolist()}"
         if sess.schedule.has_corruption:
             extra += f" corrupt={rec.corrupt.astype(int).tolist()}"
+        if rec.g_h2 is not None and np.any(rec.g_h2):
+            extra += f" g_h2={np.asarray(rec.g_h2).round(3).tolist()}"
         print(f"round {rec.round}: loss={rec.loss:.4f} "
               f"fails={rec.fail.astype(int).tolist()} "
               f"score={np.asarray(rec.score).round(3).tolist()} "

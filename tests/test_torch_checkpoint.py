@@ -144,9 +144,18 @@ def test_fingerprint_and_manifest_helpers_match(tmp_path):
                                  g_u_hist=u_hist[:2])
             == rck.elastic_manifest(active, u_hist, groups=2,
                                     global_period=3, g_u_hist=u_hist[:2]))
+    # the hierarchy's re-seats: a flat checkpoint (None) seats every rack
+    # blank / from the master, as in the reference
+    np.testing.assert_array_equal(tck.reseat_group_hist(None, 2, 5),
+                                  rck.reseat_group_hist(None, 2, 5))
+    master = {"w": u_hist[0]}
     for name in ("reseat_group_hist", "reseat_submasters"):
-        with pytest.raises(NotImplementedError, match="hierarchical"):
-            getattr(tck, name)(None, 2, 5)
+        args = ((u_hist[:3], 2, 5) if name == "reseat_group_hist"
+                else ({"w": u_hist[:3]}, master, 2))
+        got, want = getattr(tck, name)(*args), getattr(rck, name)(*args)
+        got = got["w"].numpy() if isinstance(got, dict) else got
+        want = np.asarray(want["w"] if isinstance(want, dict) else want)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("saved_cap,saved_window,cap,window,live", [

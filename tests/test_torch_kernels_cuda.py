@@ -117,6 +117,32 @@ def test_elastic_batched_kernel_matches_plain_odd_n(cuda, k, stale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap,groups", [(16, 4), (7, 3), (8, 2)])
+def test_elastic_grouped_kernel_route_matches_plain(cuda, cap, groups):
+    """The hierarchy's rack exchange: one batched launch per rack on the
+    rack's row block (rows of an odd rack start only 8-byte aligned),
+    against the plain grouped update; a dead slot's row stays
+    bit-unchanged."""
+    from repro_torch.core.dynamic_weight import group_assignment
+
+    grp = group_assignment(cap, groups)
+    gen = torch.Generator(cuda).manual_seed(cap)
+    w = torch.randn(cap, N_CARD, generator=gen, device=cuda)
+    sm = torch.randn(groups, N_CARD, generator=gen, device=cuda)
+    h = torch.rand(2, cap, generator=gen, device=cuda) * 0.5
+    h[:, 1] = 0.0
+    w2, sm2 = w.clone(), sm.clone()
+    reset_launch_counts()
+    tela.elastic_update_grouped(w2, sm2, h, grp)
+    torch.cuda.synchronize()
+    assert kernels()["elastic_update_batched"].launches == groups
+    tela.elastic_update_grouped_plain(w, sm, h, grp)
+    torch.testing.assert_close(w2, w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sm2, sm, rtol=1e-5, atol=1e-6)
+    assert torch.equal(w2[1], w[1])
+
+
+@pytest.mark.cuda
 def test_elastic_one_worker_kernel_matches_plain(cuda):
     gen = torch.Generator(cuda).manual_seed(0)
     w, m = (torch.randn(N_CARD, generator=gen, device=cuda) for _ in range(2))

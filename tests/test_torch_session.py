@@ -319,19 +319,22 @@ def test_first_order_curves_match_reference_run_one(method):
 
 
 def test_session_refuses_unported_features_by_name():
-    """Hierarchy, sharded placement and LM training still raise naming
-    their slice. Membership (capacity, an ``active`` schedule), the rule
-    controller, ``detector_blind`` and ``apply`` have since been ported:
-    they now construct (tests/test_torch_membership.py and
-    tests/test_torch_control.py run them)."""
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        ElasticSession(_spec(elastic=dict(global_period=2,
-                                          comm_mode="fused")))
-    with pytest.raises(NotImplementedError, match="sharded placement"):
-        ElasticSession(_spec(elastic=dict(placement="sharded",
-                                          comm_mode="fused")))
+    """Sharded placement (hierarchical or not) and LM training still raise
+    naming their slice. Membership (capacity, an ``active`` schedule), the
+    rule controller, ``detector_blind``, ``apply`` and hierarchy have
+    since been ported: they now construct (tests/test_torch_membership.py,
+    tests/test_torch_control.py and tests/test_torch_hierarchy.py run
+    them)."""
+    hier = ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
+    assert hier.trainer._n_groups == 3
+    assert hier.state["submasters"].shape == (3, hier.layout.n)
+    hier = ElasticSession(_spec(elastic=dict(global_period=2,
+                                             comm_mode="fused")))
+    assert hier.trainer._hier and hier.trainer._n_groups == 1
+    for extra in ({}, {"groups": 3}):
+        with pytest.raises(NotImplementedError, match="sharded placement"):
+            ElasticSession(_spec(elastic=dict(placement="sharded",
+                                              comm_mode="fused", **extra)))
     with pytest.raises(NotImplementedError, match="LM training"):
         ElasticSession(_spec(model_cfg=tget("qwen3-4b", smoke=True)))
     assert ElasticSession(_spec(elastic=dict(capacity=4))).capacity == 4

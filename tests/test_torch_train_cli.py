@@ -79,8 +79,8 @@ def test_save_then_restore_and_trace_replay(tmp_path, capsys):
 
 
 # Each case keeps the ID it had while every flag below was refused. The
-# membership and closed-loop control flags have since been ported: their
-# cases now check that the flag runs and takes effect.
+# membership, closed-loop control and hierarchy flags have since been
+# ported: their cases now check that the flag runs and takes effect.
 FLAG_CASES = [
     (["--capacity", "6"], "membership"),
     (["--membership-scenario", "scale_up"], "membership"),
@@ -95,7 +95,7 @@ FLAG_CASES = [
     (["--coordinator-address", "localhost:1234"], "multi-process"),
     (["--num-processes", "2"], "multi-process"),
     (["--process-id", "1"], "multi-process")]
-PORTED = ("membership", "closed-loop control")
+PORTED = ("membership", "closed-loop control", "hierarchical")
 
 
 @pytest.mark.parametrize("flags,slice_name", [
@@ -118,6 +118,13 @@ def test_unported_flags_are_refused_by_name(flags, slice_name, capsys):
         assert [r.num_active for r in records] == [2, 4]
     elif flags[0] == "--controller":
         assert sess.controller is not None and "[control] " in out
+    elif slice_name == "hierarchical":  # two racks of one, or a period of 2
+        assert sess.trainer._hier and sess.ecfg.comm_mode == "fused"
+        assert [r.g_h2.shape for r in records] == [
+            (sess.trainer._n_groups,)] * 2
+        if flags[0] == "--global-period":  # round 0 is off the cycle
+            assert not records[0].g_h2.any() and "g_h2=" not in \
+                out.splitlines()[0]
     elif flags[0] == "--detector-blind":
         assert sess.spec.detector_blind
         assert not any(r.fail.any() for r in records)
