@@ -65,6 +65,20 @@ failure:
    every dark rack refused there (g_h1 = g_h2 = 0) with its sub-master
    bit-unchanged (``RackWatch``); card vs CPU at capacity 7 in racks of
    3/2/2, master and sub-masters at phase 5's tolerance;
+5p. sharded placement: ``main`` at full width, DEAHES-O fused, τ=4, 8
+   rounds: ``--placement sharded`` at world size 1 beside single placement
+   (masters bit for bit, K1 32 and K2 8 launches each); then two processes
+   of this script (``--sharded-rank``) as two ranks on the one card over
+   gloo with CUDA tensors, through ``--coordinator-address``,
+   ``--num-processes 2``, ``--process-id``: k=8 flat (K1 32 launches on
+   each rank's 4 rows, K2 8 on the gathered 8; final master l2 and master
+   identical on both ranks; against single placement the max abs
+   difference, bit-exact or within phase 5's tolerance; round ms and the
+   worker gather's ms and bytes per round), then 7 workers padded to 8
+   slots in racks 3/3/2 with a global sync every 2 rounds (masters and
+   sub-masters identical across ranks, within phase 5h's tolerance of
+   single placement, g_h2 on sync rounds only); NCCL with one card per
+   rank only where two or more cards are visible;
 6. serving path: qwen3-4b at full width (4,022,468,096 bf16 params drawn
    on the card) through ``launch/serve.py``'s continuous engine over a
    16-request bursty trace, counts zeroed just before: flash attention
@@ -75,8 +89,9 @@ failure:
    the CPU from the same params, prefill and 4 decode steps agree;
 8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
    ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
-   ``{"hierarchy": ...}`` line, a ``{"kernels": [...]}`` line (the
-   batched kernels' entries with their launches on the hierarchy run
+   ``{"hierarchy": ...}`` line, a ``{"sharded": ...}`` line, a
+   ``{"kernels": [...]}`` line (the batched kernels' entries with their
+   launches on the hierarchy run and on each rank of the sharded runs
    too), the ``nvidia-smi`` line, and last the ``{"ok": true, ...}``
    line.
 
@@ -89,6 +104,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1305,6 +1321,288 @@ def hierarchy_device_parity(torch):
     return {"max_abs_err": worst_abs, "worst_leaf_norm_rel": worst_norm}
 
 
+SHARDED_BASE = ["--workers", "8", "--tau", "4", "--rounds", "8",
+                "--comm-mode", "fused"]
+SHARDED_HIER = ["--workers", "7", "--groups", "3", "--global-period", "2"]
+
+
+def sharded_rank(torch, rank: int, world: int, port: int, out_dir: str):
+    """One rank of phase 5p (b)-(c), in a process of its own:
+    ``launch/train.py``'s ``main`` with the multi-process flags, flat
+    (k=8) and then hierarchical (7 workers padded to 8, racks 3/3/2) in
+    the same process group. A one-round run of the flat flags first pays
+    the process's one-time costs (the group's rendezvous, the CUDA and
+    cuDNN start-up), timed; then the rank waits for the file ``go`` in
+    ``out_dir``, which the parent writes once it no longer uses the card.
+    Per run it records the kernel launches and the rows each launch
+    covered, the round ms, every ``gather_rows`` call of the comm phase
+    timed between two ``synchronize()`` calls with its bytes, the printed
+    ``final master l2``; the master (and sub-masters) go to ``out_dir``
+    for the parent to compare."""
+    import repro_torch.core.coordinator as coord
+    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.kernels.adahessian import ops as ada
+    from repro_torch.kernels.elastic import ops as ela
+    from repro_torch.launch.train import main
+
+    rows, gathers = [], []
+    for kern, k_at in ((ada.KERNEL, 6), (ela.BATCHED_KERNEL, 4)):
+        def launch(*args, _real=kern.launch, _name=kern.name, _k=k_at):
+            rows.append((_name, int(args[_k])))
+            _real(*args)
+        kern.launch = launch
+    real_gather = coord.gather_rows
+
+    def timed_gather(local, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_gather(local, group)
+        torch.cuda.synchronize()
+        gathers.append(((time.perf_counter() - t0) * 1e3,
+                        out.numel() * out.element_size()))
+        return out
+
+    coord.gather_rows = timed_gather
+    multi = ["--placement", "sharded", "--coordinator-address",
+             f"127.0.0.1:{port}", "--num-processes", str(world),
+             "--process-id", str(rank)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(SHARDED_BASE + multi + ["--rounds", "1"])
+    result = {"warm_up_s": time.perf_counter() - t0}
+    while not os.path.exists(os.path.join(out_dir, "go")):
+        time.sleep(0.05)
+    for kind, argv in (("flat", SHARDED_BASE + multi),
+                       ("hier", SHARDED_BASE + SHARDED_HIER + multi)):
+        rows.clear()
+        gathers.clear()
+        reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            sess, recs = main(argv)
+        text = buf.getvalue()
+        n_rounds = len(recs)
+        big = [g for g in gathers if g[1] > 1 << 20]  # the worker rows
+        result[kind] = {
+            "launches": {n: x.launches for n, x in kernels().items()
+                         if x.launches},
+            "rows": sorted({f"{n}:{k}": sum(1 for r in rows if r == (n, k))
+                            for n, k in set(rows)}.items()),
+            "round_ms": [r.round_ms for r in recs],
+            "gather_ms": [g[0] for g in big],
+            "gather_bytes_per_round": sum(g[1] for g in gathers) // n_rounds,
+            "l2": re.search(r"final master l2=(\S+)", text).group(1),
+            "backend": torch.distributed.get_backend(),
+            "round_lines": text.count("round "),
+            "g_h2": [r.g_h2.tolist() for r in recs] if kind == "hier"
+            else None,
+            "losses": [r.loss for r in recs]}
+        state = {"master": sess.state["master"].cpu()}
+        if kind == "hier":
+            state["submasters"] = sess.state["submasters"].cpu()
+        torch.save(state, os.path.join(out_dir, f"{kind}{rank}.pt"))
+        del sess
+    torch.distributed.destroy_process_group()
+    print("RANK_RESULT " + json.dumps(result), flush=True)
+
+
+def _spawn_ranks(world: int, out_dir: str, meanwhile=lambda: None,
+                 timeout: float = 300):
+    """Phase 5p's ranks: ``world`` processes of this script, each one
+    rank (``--sharded-rank``), on a free local port. ``meanwhile()`` runs
+    here while they start up; then the file ``go`` releases them. Every
+    process is ended before this returns. Returns each rank's result
+    record and what ``meanwhile`` returned."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+         str(rank), str(world), str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs = []
+    try:
+        here = meanwhile()
+        open(os.path.join(out_dir, "go"), "w").close()
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    results = []
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        found = [line for line in out.splitlines()
+                 if line.startswith("RANK_RESULT ")]
+        if proc.returncode or not found:
+            raise AssertionError(f"rank {rank} exited {proc.returncode}:\n"
+                                 f"{out[-3000:]}")
+        results.append(json.loads(found[-1][len("RANK_RESULT "):]))
+    return results, here
+
+
+def sharded_cli(torch):
+    """Phase 5p: sharded placement on the card through ``launch/train.py``
+    at PaperCNN's full width, DEAHES-O fused, τ=4, 8 rounds.
+
+    (a) ``--placement sharded`` at world size 1 (no process group), k=8,
+        beside ``--placement single`` with the same seeds: masters bit for
+        bit, K1 32 and K2 8 launches in each; run here while the two rank
+        processes of (b) start up;
+    (b) two processes on the one card (``--coordinator-address
+        127.0.0.1:P --num-processes 2 --process-id {0,1}``, gloo with CUDA
+        tensors), k=8, 4 slots per rank: both ranks' ``final master l2``
+        and masters identical; against (a)'s single run, the max abs
+        difference and whether it is bit-exact (else within phase 5's
+        tolerance); per rank K1 32 launches on 4 rows, K2 8 on 8 rows,
+        round ms, and the comm phase's gather ms and bytes per round;
+    (c) the same two ranks, hierarchical: 7 workers padded to 8 slots,
+        ``--groups 3 --global-period 2`` (racks 3/3/2, rack 1 on both
+        ranks), against single placement at capacity 8: masters and
+        sub-masters identical across ranks and within phase 5h's tolerance
+        of single placement, g_h2 non-zero on the sync rounds only;
+    (d) only with two or more cards: (b) again, one card per rank, over
+        NCCL; otherwise one line saying why it did not run."""
+    import numpy as np
+
+    from repro_torch.kernels.flatten import FlatLayout
+    from repro_torch.models.cnn import PaperCNN
+    from repro_torch.configs.base import get_config
+
+    K1, K2 = "adahessian_update_batched", "elastic_update_batched"
+    layout = FlatLayout(PaperCNN(get_config("paper-cnn")).spec)
+    out = {}
+
+    def world1():
+        """(a), while the ranks start up: single placement and sharded
+        placement at world size 1, flat, then single placement of (c)'s
+        hierarchy; their masters (and sub-masters) on the host."""
+        single, recs_s, _, _, _ = _cli_run(
+            torch, "single k=8", SHARDED_BASE, {K1: 32, K2: 8})
+        w1, recs_w1, _, _, _ = _cli_run(
+            torch, "sharded world 1 k=8",
+            SHARDED_BASE + ["--placement", "sharded"], {K1: 32, K2: 8})
+        if not torch.equal(w1.state["master"], single.state["master"]):
+            raise AssertionError("sharded at world size 1: master differs "
+                                 "from single placement")
+        out["world1"] = {
+            "bitwise_vs_single": True,
+            "round_ms_single": statistics.median(r.round_ms
+                                                 for r in recs_s[1:]),
+            "round_ms_sharded": statistics.median(r.round_ms
+                                                  for r in recs_w1[1:])}
+        log(f"    (a) world size 1: master bit for bit with single "
+            f"placement; round ms single "
+            f"{out['world1']['round_ms_single']:.2f}, sharded "
+            f"{out['world1']['round_ms_sharded']:.2f} (the two rank "
+            "processes start up beside these runs)")
+        hier, _, _, _, _ = _cli_run(
+            torch, "single hier 7 of 8 slots",
+            SHARDED_BASE + SHARDED_HIER + ["--capacity", "8"],
+            {K1: 32, K2: 8 * 3 + 4})
+        return (single.state["master"].cpu(), hier.state["master"].cpu(),
+                hier.state["submasters"].cpu())
+
+    # (a), then (b) + (c): two ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks, singles = _spawn_ranks(2, tmp, world1)
+        spawn_s = time.perf_counter() - t0
+        master_single, hier_master_single, subs_single = singles
+        load = lambda kind, r: torch.load(os.path.join(tmp, f"{kind}{r}.pt"))
+        flat = [load("flat", r) for r in range(2)]
+        hier = [load("hier", r) for r in range(2)]
+    for kind in ("flat", "hier"):
+        l2s = [r[kind]["l2"] for r in ranks]
+        if l2s[0] != l2s[1]:
+            raise AssertionError(f"(b/c) {kind}: ranks' final master l2 "
+                                 f"differ: {l2s}")
+        if [r[kind]["round_lines"] for r in ranks] != [
+                len(ranks[0][kind]["round_ms"]), 0]:
+            raise AssertionError(f"{kind}: round lines per rank "
+                                 f"{[r[kind]['round_lines'] for r in ranks]}")
+    want_rows = {"flat": [[f"{K1}:4", 32], [f"{K2}:8", 8]],
+                 "hier": [[f"{K1}:4", 32], [f"{K2}:2", 8], [f"{K2}:3", 20]]}
+    for rank, r in enumerate(ranks):
+        for kind in ("flat", "hier"):
+            if r[kind]["rows"] != want_rows[kind]:
+                raise AssertionError(f"rank {rank} {kind}: launches by rows "
+                                     f"{r[kind]['rows']}, expected "
+                                     f"{want_rows[kind]}")
+            if r[kind]["backend"] != "gloo":
+                raise AssertionError(f"rank {rank}: backend "
+                                     f"{r[kind]['backend']}, not gloo")
+    if not torch.equal(flat[0]["master"], flat[1]["master"]):
+        raise AssertionError("(b) the two ranks' masters differ")
+    diff = float((flat[0]["master"] - master_single).abs().max())
+    bitwise = bool(torch.equal(flat[0]["master"], master_single))
+    worst = _leaf_parity(torch, layout, flat[0]["master"].double(),
+                         master_single.double(), "(b) 2 ranks vs single",
+                         1e-4)
+    for key in ("master", "submasters"):
+        if not torch.equal(hier[0][key], hier[1][key]):
+            raise AssertionError(f"(c) the two ranks' {key} differ")
+    hier_bitwise = bool(torch.equal(hier[0]["master"], hier_master_single)
+                        and torch.equal(hier[0]["submasters"], subs_single))
+    hier_worst = [_leaf_parity(torch, layout, hier[0]["master"].double(),
+                               hier_master_single.double(),
+                               "(c) master vs single", 1e-4)]
+    for g in range(3):
+        hier_worst.append(_leaf_parity(
+            torch, layout, hier[0]["submasters"][g].double(),
+            subs_single[g].double(), f"(c) sub-master {g} vs single", 1e-4))
+    syncs = [bool(np.any(g)) for g in ranks[0]["hier"]["g_h2"]]
+    if syncs != [r % 2 == 1 for r in range(len(syncs))]:
+        raise AssertionError(f"(c) g_h2 non-zero on rounds {syncs}")
+    for rank, r in enumerate(ranks):
+        for kind in ("flat", "hier"):
+            rk = r[kind]
+            log(f"    ({'b' if kind == 'flat' else 'c'}) rank {rank} {kind}: "
+                f"launches by rows {rk['rows']}; round ms median "
+                f"{statistics.median(rk['round_ms'][1:]):.2f} (first "
+                f"{rk['round_ms'][0]:.1f}); gather of the worker rows "
+                f"median {statistics.median(rk['gather_ms']):.2f} ms, "
+                f"{rk['gather_bytes_per_round']} bytes a round; l2 {rk['l2']}")
+    log(f"    (b) two ranks vs single: master max abs diff {diff:.3g}, "
+        f"bit-exact {bitwise}, worst leaf norm-wise {worst[0]:.3g}")
+    log(f"    (c) two ranks vs single: master and sub-masters bit-exact "
+        f"{hier_bitwise}, max abs diff {max(w[1] for w in hier_worst):.3g}, "
+        f"worst leaf norm-wise {max(w[0] for w in hier_worst):.3g}; g_h2 on "
+        f"sync rounds only; (a) to (c) took {spawn_s:.1f} s, each rank's "
+        f"one-round warm-up {[round(r['warm_up_s'], 1) for r in ranks]} s")
+    out["two_ranks"] = {
+        "backend": "gloo", "cards": 1, "ranks": ranks, "spawn_s": spawn_s,
+        "flat_vs_single": {"bitwise": bitwise, "max_abs_diff": diff,
+                           "worst_leaf_norm_rel": worst[0]},
+        "hier_vs_single": {"bitwise": hier_bitwise,
+                           "max_abs_diff": max(w[1] for w in hier_worst),
+                           "worst_leaf_norm_rel": max(w[0]
+                                                      for w in hier_worst)}}
+    out["launches_per_rank"] = {kind: ranks[0][kind]["launches"]
+                                for kind in ("flat", "hier")}
+    # (d) NCCL, one card per rank
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            nccl, _ = _spawn_ranks(2, tmp)
+            masters = [torch.load(os.path.join(tmp, f"flat{r}.pt"))["master"]
+                       for r in range(2)]
+        if (any(r["flat"]["backend"] != "nccl" for r in nccl)
+                or not torch.equal(masters[0], masters[1])):
+            raise AssertionError("(d) nccl: backend or masters differ")
+        out["nccl"] = nccl
+        log(f"    (d) nccl, one card per rank: masters identical, gather "
+            f"median {statistics.median(nccl[0]['flat']['gather_ms']):.2f} "
+            "ms")
+    else:
+        out["nccl"] = None
+        log(f"    (d) nccl: not run — {torch.cuda.device_count()} card "
+            "visible, NCCL needs one card per rank")
+    return out
+
+
 class WatchedLM:
     """Wraps a ``DecoderLM`` for the engines: every ``prefill`` /
     ``decode_step`` is timed between two ``synchronize()`` calls (the
@@ -1575,6 +1873,12 @@ def main() -> int:
     from repro_torch.kernels import kernels
     from repro_torch.kernels.build import build
 
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of phase 5p
+        rank, world, port = (int(x) for x in sys.argv[2:5])
+        resolve_device("cuda")
+        sharded_rank(torch, rank, world, port, sys.argv[5])
+        return 0
+
     t_start = time.perf_counter()
     resolve_device("cuda")  # TF32 off for matmuls and cuDNN
     smi = nvidia_smi_line()
@@ -1627,6 +1931,12 @@ def main() -> int:
     log("[5h] hierarchy at full width: launch/train.py main, 16 slots in "
         "4 racks, global sync every 2 rounds")
     hierarchy = hierarchy_cli(torch)
+    log("[5p] sharded placement at full width: launch/train.py main at "
+        "world size 1, then two ranks on the card")
+    t0 = time.perf_counter()
+    sharded = sharded_cli(torch)
+    sharded["phase_s"] = time.perf_counter() - t0
+    log(f"    phase 5p took {sharded['phase_s']:.1f} s")
 
     log("[6] serving path: qwen3-4b at full width through launch/serve.py")
     serve_counts, serve_stats = serving_path(torch)
@@ -1638,6 +1948,10 @@ def main() -> int:
             else totals)[name]
         if name in hierarchy["launches"]:
             entry["hierarchy_launches"] = hierarchy["launches"][name]
+        if name in sharded["launches_per_rank"]["flat"]:
+            entry["sharded_launches_per_rank"] = {
+                kind: counts[name] for kind, counts in
+                sharded["launches_per_rank"].items()}
 
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
     serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
@@ -1648,6 +1962,7 @@ def main() -> int:
     print(json.dumps({"membership": membership}))
     print(json.dumps({"control": control}))
     print(json.dumps({"hierarchy": hierarchy}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

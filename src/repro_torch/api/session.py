@@ -46,8 +46,19 @@ fused comm): every :class:`RoundRecord` carries the racks' (G,) ``g_u``,
 before the main manifest, and ``restore`` re-seats them and the racks'
 u-histories, also at another rack count.
 
-Not ported yet, refused by name: LM training (and, in
-``repro_torch.core.coordinator.check_slice``, sharded placement).
+Sharded placement (``ElasticConfig.placement = "sharded"``): the slot
+axis is split over the ranks of a ``torch.distributed`` process group
+(``group``, else the default group, else world size 1; see
+``repro_torch.core.coordinator``). The capacity is padded to a multiple of
+the world size, the padded slots vacant (as any slot above the live
+pool, a resize may fill them); each rank uploads only
+its rows of the batches; the master, the records and eval are replicated,
+so membership, ``apply`` and the rule controller decide the same on every
+rank (``round_ms`` is the slowest rank's). ``save`` writes from rank 0
+only, in the same format; ``restore`` re-seats on every rank, from a
+checkpoint of any placement and world size.
+
+Not ported yet, refused by name: LM training.
 """
 from __future__ import annotations
 
@@ -72,6 +83,8 @@ from repro_torch.core.scenarios import (ScenarioSchedule, make_membership,
 from repro_torch.data.pipeline import WorkerBatcher
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (max_over_ranks, padded_capacity,
+                                     world_and_rank)
 from repro_torch.models.cnn import PaperCNN
 from repro_torch.nn.param import tree_from_leaves
 from repro_torch.train.steps import init_train_state, make_train_step
@@ -189,12 +202,13 @@ class ElasticSession:
     ``noise_fn`` replace the probe and byzantine-noise draws (see
     ``ElasticTrainer.probe_fn``; plain mode calls ``probe_fn(step, 0, 0)``).
     ``run_iter()`` yields a :class:`RoundRecord` per round; ``run()``
-    collects them.
+    collects them. ``group`` is the process group of a sharded run (None:
+    the default group, if one is initialised).
     """
 
     def __init__(self, spec: RunSpec, *, params=None,
                  probe_fn: Optional[ProbeFn] = None,
-                 noise_fn: Optional[NoiseFn] = None):
+                 noise_fn: Optional[NoiseFn] = None, group=None):
         self.spec = spec
         self.device = resolve_device(spec.device)
         cfg = spec.model_cfg or get_config(spec.arch, smoke=spec.smoke)
@@ -212,11 +226,25 @@ class ElasticSession:
                 ecfg, num_workers=1, capacity=0, tau=1, overlap_ratio=0.0,
                 failure_prob=0.0, placement="single",
                 membership_scenario="static", groups=1, global_period=1)
+        self._sharded = ecfg.placement == "sharded"
+        self._group = group
+        self._world = world_and_rank(group)[0] if self._sharded else 1
+        cap = padded_capacity(ecfg.cap, self._world)
+        if cap != ecfg.cap:
+            if spec.schedule is not None:
+                raise ValueError(
+                    f"RunSpec.schedule covers {ecfg.cap} slots, which do not "
+                    f"split over {self._world} ranks: pad the schedule")
+            # the padded slots start vacant: capacity > num_workers seats
+            # a membership stream whose live slots come first
+            ecfg = dataclasses.replace(ecfg, capacity=cap)
         self.ecfg = ecfg
         self.capacity = ecfg.cap
         self.trainer = ElasticTrainer(self.model, spec.optimizer, ecfg,
                                       device=self.device, probe_fn=probe_fn,
-                                      noise_fn=noise_fn, seed=spec.seed)
+                                      noise_fn=noise_fn, seed=spec.seed,
+                                      group=group)
+        self._rows = slice(self.trainer._lo, self.trainer._hi)
         self.layout = self.trainer.layout
         # -- data -----------------------------------------------------------
         ds = SyntheticImages(n=spec.n_data, n_test=spec.n_test,
@@ -312,7 +340,7 @@ class ElasticSession:
         sibling checkpoint ``<path>/submasters`` (a param tree with a
         leading (G,) axis), written before the main manifest so that the
         manifest, written last, implies both; the main tree stays the bare
-        master."""
+        master. A sharded run's ranks all call this; rank 0 writes."""
         path = path or self.spec.save_path
         if not path:
             raise ValueError("no save path: pass one or set RunSpec.save_path")
@@ -328,10 +356,13 @@ class ElasticSession:
                     "g_u_hist": self.state["g_u_hist"].cpu().numpy()}
                    if hier else {}))
         meta.update(extra_metadata or {})
+        # a sharded run: every rank calls, rank 0 writes
+        ranks = dict(collective=self._world > 1, group=self._group)
         if hier:
             checkpoint.save(os.path.join(path, "submasters"),
-                            self.layout.to_numpy(self.state["submasters"]))
-        checkpoint.save(path, self.master_tree(), metadata=meta)
+                            self.layout.to_numpy(self.state["submasters"]),
+                            **ranks)
+        checkpoint.save(path, self.master_tree(), metadata=meta, **ranks)
         return path
 
     def restore(self, path: str) -> dict:
@@ -543,6 +574,9 @@ class ElasticSession:
             # transitions): re-partition the data before drawing batches
             self._apply_membership(self._membership[lo])
         host_batches = [self.batcher.round_batches() for _ in range(n)]
+        if self._sharded:  # this rank's rows only
+            host_batches = [{key: np.ascontiguousarray(val[:, self._rows])
+                             for key, val in b.items()} for b in host_batches]
         t0 = time.perf_counter()
         metrics = []
         for i, r in enumerate(range(lo, hi)):
@@ -564,8 +598,12 @@ class ElasticSession:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
-        round_ms = (t2 - t0) * 1e3 / n
-        dispatch_ms = (t1 - t0) * 1e3
+        round_ms, dispatch_ms = (t2 - t0) * 1e3 / n, (t1 - t0) * 1e3
+        if self._world > 1:
+            # the slowest rank's times, so that every rank's records (and
+            # a controller reading them) agree
+            round_ms, dispatch_ms = max_over_ranks(
+                [round_ms, dispatch_ms], self.device, self._group)
         self.round = hi
         echo = self._echo
         no_corrupt = np.zeros(self.capacity, bool)

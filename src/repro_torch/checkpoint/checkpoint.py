@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "/"
 MAX_SHARD_BYTES = 1 << 30  # 1 GiB per npz shard
@@ -85,9 +86,25 @@ def _sanitize(key: str) -> str:
     return key.replace(_SEP, "__")
 
 
-def save(path: str, tree, *, metadata: Optional[dict] = None) -> None:
+def save(path: str, tree, *, metadata: Optional[dict] = None,
+         collective: bool = False, group=None) -> None:
     """Write ``tree`` under the directory ``path``: the shards first, the
-    manifest last (so a manifest implies complete shards)."""
+    manifest last (so a manifest implies complete shards).
+
+    ``collective`` (a sharded run, whose master every rank holds): every
+    rank of ``group`` (None: the default group) calls this, rank 0 writes,
+    and all return once the checkpoint is complete."""
+    if not collective:
+        _write(path, tree, metadata)
+        return
+    try:
+        if dist.get_rank(group) == 0:
+            _write(path, tree, metadata)
+    finally:
+        dist.barrier(group=group)
+
+
+def _write(path: str, tree, metadata: Optional[dict]) -> None:
     os.makedirs(path, exist_ok=True)
     leaves = _flatten_with_paths(tree)
     keys_info: Dict[str, dict] = {}

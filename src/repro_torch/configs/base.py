@@ -8,9 +8,14 @@ an MoE config by name); ``use_pallas`` is not carried across — the
 device of the tensors picks kernel or plain version. ``get_config``
 resolves the ported architectures and refuses every other by name.
 
-Configs are plain data: a feature the port does not run yet (sharded
-placement) is still a valid *configuration*; the trainer and the session
-raise ``NotImplementedError`` for it when asked to run one.
+Configs are plain data and validate as the reference's do: sharded
+placement needs fused comm (the reference's own ``ValueError``). Sharded
+placement runs in the port: the trainer splits the slot axis over the
+ranks of a ``torch.distributed`` group (world size 1 without one), the
+session pads the capacity to a multiple of the world size, and the CLI's
+``--coordinator-address`` / ``--num-processes`` / ``--process-id`` start
+one process per rank (``repro_torch.launch.mesh``). With one card, ranks
+share it over gloo; NCCL needs a card per rank.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Elastic-averaging coordinator (the paper's system, §V–§VI), single placement.
+"""Elastic-averaging coordinator (the paper's system, §V–§VI).
 
 One round of ``ElasticTrainer.round_step``:
 
@@ -60,7 +60,20 @@ worker role against the master: their own u-history ``g_u_hist``, scores,
 h1/h2 and one batched exchange. Restarts and joins still re-seat from the
 master.
 
-Out of this slice, refused by name: sharded placement.
+Sharded placement (``ElasticConfig.placement = "sharded"``, fused comm):
+the slot axis is split over the ranks of a ``torch.distributed`` process
+group (``ElasticTrainer.group``, else the default group, else world size
+1), rank r holding the contiguous slots ``repro_torch.launch.mesh.
+shard_slots`` gives it. The state holds the rank's rows of ``workers`` and
+of the optimizer state; ``master``, ``master_prev``, ``u_hist``,
+``submasters`` and ``g_u_hist`` are whole and replicated. A round runs the
+restarts, joins and the local phase on the rank's rows (the probe and
+noise seams and every mask keyed by global slot), takes the mean loss as an
+``all_reduce`` of (sum, count), then gathers the worker rows
+(``gather_rows``, cap × n × 4 bytes), runs the single-placement comm phase
+unchanged on the full (cap, n) buffer on every rank — so every rank's
+master and sub-masters are bit-identical, and bit-identical to single
+placement given the same pre-comm workers — and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -69,6 +82,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad, vmap
 
 from repro_torch.configs.base import ElasticConfig, OptimizerConfig
@@ -78,6 +92,7 @@ from repro_torch.kernels.elastic.ops import (elastic_update,
                                              elastic_update_batched,
                                              elastic_update_grouped)
 from repro_torch.kernels.flatten import FlatLayout
+from repro_torch.launch.mesh import gather_rows, shard_slots, world_and_rank
 from repro_torch.nn.param import init_tree
 from repro_torch.optim.adahessian import spatial_average
 from repro_torch.optim.base import make_optimizer
@@ -159,14 +174,6 @@ class GaussianNoise:
             self.gen, self.seed, self.SALT, r, t, i))
 
 
-def check_slice(ecfg: ElasticConfig) -> None:
-    """Refuse, by name, the features this port does not run yet (sharded
-    placement, and with it sharded hierarchy)."""
-    if ecfg.placement != "single":
-        raise NotImplementedError(
-            "not ported to PyTorch yet: sharded placement")
-
-
 @dataclasses.dataclass(eq=False)
 class ElasticTrainer:
     model: Any
@@ -184,9 +191,18 @@ class ElasticTrainer:
     # and comm phase even at groups=1, global_period=1, where the round is
     # the flat fused one bit for bit (the degenerate proof runs this).
     hierarchical: Optional[bool] = None
+    # Sharded placement: the process group the slot axis is split over;
+    # None takes the default group, or world size 1 when none is
+    # initialised.
+    group: Any = None
 
     def __post_init__(self):
-        check_slice(self.ecfg)
+        self._sharded = self.ecfg.placement == "sharded"
+        self._world, self._rank = (world_and_rank(self.group)
+                                   if self._sharded else (1, 0))
+        # the slots this rank holds: all of them at single placement
+        self._lo, self._hi = shard_slots(self.ecfg.cap, self._world,
+                                         self._rank)
         self._hier = (self.ecfg.hierarchical if self.hierarchical is None
                       else bool(self.hierarchical))
         if self._hier:
@@ -219,15 +235,17 @@ class ElasticTrainer:
         """Fresh state: every worker a copy of ``params`` (a nested tree of
         arrays in the reference layout, e.g. from ``params_from_numpy``),
         or of a parameter tree drawn from a ``torch.Generator`` seeded with
-        ``seed``."""
+        ``seed``. Under sharded placement ``workers`` and ``opt`` hold this
+        rank's rows only."""
         if params is None:
             params = init_tree(torch.Generator().manual_seed(self.seed),
                                self.model.spec)
         k, n = self.ecfg.cap, self.layout.n
+        rows = self._hi - self._lo
         master = self.layout.pack_tree(params, device=self.device)
         state = {
-            "workers": master.expand(k, n).clone(),
-            "opt": self.opt.init(k, n, self.device),
+            "workers": master.expand(rows, n).clone(),
+            "opt": self.opt.init(rows, n, self.device),
             "master": master,
             # previous-round master snapshot (stragglers' stale estimate,
             # the stale sync target under delayed averaging): a distinct
@@ -252,11 +270,14 @@ class ElasticTrainer:
         ``workers``, ``opt`` (``count`` plus ``m``/``v`` trees),
         ``master``, ``master_prev``, ``u_hist``, ``round``, and for a
         hierarchical trainer ``submasters`` (a param tree with a leading
-        (G,) axis) and ``g_u_hist``."""
+        (G,) axis) and ``g_u_hist``. Under sharded placement every slot's
+        rows are gathered first: a collective, called on every rank."""
         lay = self.layout
-        opt = {key: (val.cpu().numpy() if key == "count" else lay.to_numpy(val))
+        rows = lambda x: gather_rows(x, self.group) if self._sharded else x
+        opt = {key: (rows(val).cpu().numpy() if key == "count"
+                     else lay.to_numpy(rows(val)))
                for key, val in state["opt"].items()}
-        out = {"workers": lay.to_numpy(state["workers"]), "opt": opt,
+        out = {"workers": lay.to_numpy(rows(state["workers"])), "opt": opt,
                "master": lay.to_numpy(state["master"]),
                "master_prev": lay.to_numpy(state["master_prev"]),
                "u_hist": state["u_hist"].cpu().numpy(),
@@ -269,18 +290,21 @@ class ElasticTrainer:
     def state_from_numpy(self, tree) -> Dict[str, Any]:
         """Inverse of :meth:`state_to_numpy`: a reference state tree (numpy
         arrays, e.g. ``jax.device_get(state)``) as this trainer's flat
-        buffers on its device."""
+        buffers on its device; under sharded placement, of this rank's
+        rows."""
         lay, dev, k = self.layout, self.device, self.ecfg.cap
-        opt = {key: (torch.tensor(np.asarray(val), dtype=torch.int32,
+        mine = slice(self._lo, self._hi)
+        opt = {key: (torch.tensor(np.asarray(val)[mine], dtype=torch.int32,
                                   device=dev) if key == "count"
-                     else lay.pack_tree(val, (k,), dev))
+                     else lay.pack_tree(val, (k,), dev)[mine].clone())
                for key, val in tree["opt"].items()}
         if set(opt) != set(self.opt.init(1, 1, "cpu")):
             raise ValueError(f"opt state keys {sorted(opt)} do not match "
                              f"optimizer {self.opt_cfg.name!r}")
         hist = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
                                       device=dev)
-        state = {"workers": lay.pack_tree(tree["workers"], (k,), dev),
+        state = {"workers": lay.pack_tree(tree["workers"], (k,),
+                                          dev)[mine].clone(),
                  "opt": opt,
                  "master": lay.pack_tree(tree["master"], device=dev),
                  "master_prev": lay.pack_tree(tree["master_prev"],
@@ -295,8 +319,8 @@ class ElasticTrainer:
 
     # -- failure-scenario state transitions --------------------------------------
     def apply_restarts(self, state, restart: np.ndarray) -> None:
-        """Crash-restart rejoin: workers with ``restart[i]`` have their
-        params re-seated from the master. The u-history and the optimizer
+        """Crash-restart rejoin: workers with ``restart[i]`` (a mask over
+        this rank's rows) have their params re-seated from the master. The u-history and the optimizer
         accumulators are kept, as in the reference (``repro.core.
         coordinator.ElasticTrainer.apply_restarts`` gives the reasons)."""
         for i in np.flatnonzero(restart):
@@ -306,7 +330,8 @@ class ElasticTrainer:
     def corrupt_grads(self, grads: torch.Tensor, corrupt: np.ndarray, r: int,
                       t: int) -> None:
         """Replace, in place, the (k, n) gradient rows of the corrupt slots
-        by the adversarial gradient of ``ecfg.byzantine_mode``
+        (``corrupt`` over this rank's rows) by the adversarial gradient of
+        ``ecfg.byzantine_mode``
         (``repro.core.coordinator.ElasticTrainer._poison``): ``sign_flip``
         ascends the loss, ``scale`` overshoots by ``byzantine_scale``×,
         ``noise`` adds ``byzantine_scale``·N(0, 1) drawn through
@@ -319,7 +344,7 @@ class ElasticTrainer:
             elif mode == "scale":
                 g.mul_(c)
             else:
-                g.add_(c * self.noise_fn(r, t, int(i)))
+                g.add_(c * self.noise_fn(r, t, self._lo + int(i)))
 
     # -- local phase ------------------------------------------------------------
     def _loss(self, params, images, labels):
@@ -331,9 +356,11 @@ class ElasticTrainer:
         diagonals from one vmapped ``jvp(grad)``, the diagonal spatially
         averaged per leaf, both packed into (k, n) with one ``torch.cat``
         each (the corrupt slots' gradients poisoned), then one batched
-        update in place."""
-        k, lay = self.ecfg.cap, self.layout
-        z = torch.stack([self.probe_fn(r, t, i) for i in range(k)])
+        update in place, over this rank's rows (probes keyed by global
+        slot)."""
+        k, lay = self._hi - self._lo, self.layout
+        z = torch.stack([self.probe_fn(r, t, i)
+                         for i in range(self._lo, self._hi)])
         probes = [lay.views(z[:, s]) for s in range(z.shape[1])]
         grads, diag, loss = hessian_diag_with_grad(
             self._loss, lay.views(state["workers"]), probes,
@@ -348,7 +375,7 @@ class ElasticTrainer:
         return loss
 
     def _plain_local_step(self, state, batch, r: int, t: int, corrupt=None):
-        k, lay = self.ecfg.cap, self.layout
+        k, lay = self._hi - self._lo, self.layout
 
         def loss_and_value(p, images, labels):
             value = self._loss(p, images, labels)
@@ -377,11 +404,13 @@ class ElasticTrainer:
         those steps the same way). ``corrupt`` (k,) bool: those slots'
         gradients are poisoned every step (:meth:`corrupt_grads`).
         ``active`` (k,) bool: vacant slots are frozen for every step and
-        count neither loss nor steps.
+        count neither loss nor steps. Under sharded placement ``batches``
+        and every mask cover this rank's rows.
 
         Returns ``(mean_loss, loss_w)``: the mean over live (worker, step)
-        losses, and the (k,) per-worker mean over its live steps."""
-        k = self.ecfg.cap
+        losses of every rank (an ``all_reduce`` of sum and count), and the
+        (k,) per-worker mean over its live steps, of this rank's rows."""
+        k = self._hi - self._lo
         tau = batches["images"].shape[0]
         tau_eff = max(1, round(self.ecfg.straggler_tau_scale * tau))
         speed_steps = (None if speed is None else np.maximum(
@@ -411,7 +440,13 @@ class ElasticTrainer:
             step_sums.append(loss.sum())
             loss_w = loss_w + loss
             live_steps += live
-        mean_loss = torch.stack(step_sums).sum() / max(int(live_steps.sum()), 1)
+        total, n_live = torch.stack(step_sums).sum(), int(live_steps.sum())
+        if self._world > 1:
+            buf = torch.stack([total, total.new_tensor(float(n_live))])
+            dist.all_reduce(buf, group=self.group)
+            mean_loss = buf[0] / buf[1].clamp(min=1.0)
+        else:
+            mean_loss = total / max(n_live, 1)
         loss_w = loss_w / torch.as_tensor(np.maximum(live_steps, 1),
                                           dtype=torch.float32,
                                           device=self.device)
@@ -432,20 +467,35 @@ class ElasticTrainer:
         it exchanges nothing, its u-history stays frozen and its
         diagnostics read zero. At the end ``master_prev`` becomes a copy of
         the round-start master, taken before the exchange writes the
-        master."""
+        master.
+
+        Under sharded placement the masks cover every slot, and the phase
+        is a collective: the worker rows of every rank are gathered
+        (:func:`~repro_torch.launch.mesh.gather_rows`), the exchange runs
+        on the full (cap, n) buffer on every rank, and this rank keeps its
+        rows."""
         if failed_recent is None:
             failed_recent = np.zeros_like(fail)
         fr = torch.as_tensor(failed_recent, device=self.device)
+        full = state
+        if self._sharded:
+            full = dict(state, workers=gather_rows(state["workers"],
+                                                   self.group))
         if self._hier:
-            metrics = self._comm_phase_hier(state, fail, failed_recent, fr,
+            metrics = self._comm_phase_hier(full, fail, failed_recent, fr,
                                             straggle, active)
         elif self.ecfg.comm_mode == "fused":
-            metrics = self._comm_phase_fused(state, fail, fr, straggle,
+            metrics = self._comm_phase_fused(full, fail, fr, straggle,
                                              active)
         else:
-            metrics = self._comm_phase_sequential(state, fail, fr, straggle,
+            metrics = self._comm_phase_sequential(full, fail, fr, straggle,
                                                   active)
-        state["round"] += 1
+        full["round"] += 1
+        if full is not state:
+            if full["workers"] is not state["workers"]:
+                state["workers"].copy_(full["workers"][self._lo:self._hi])
+            state.update((key, val) for key, val in full.items()
+                         if key != "workers")
         return metrics
 
     def _comm_phase_sequential(self, state, fail, fr, straggle, active):
@@ -624,18 +674,25 @@ class ElasticTrainer:
         """One round, in place: restarts and joins (both re-seat from the
         master), local phase, comm phase. Returns ``(state, metrics)`` with
         device-resident (k,) ``u, score, h1, h2, loss_w`` and scalar
-        ``loss``."""
+        ``loss``, every slot's on every rank.
+
+        Under sharded placement ``inputs.batches`` holds this rank's rows
+        (τ, cap/world, B, …) and the masks every slot; the restarts, joins
+        and local phase run on the rank's rows, the comm phase on all."""
+        mine = slice(self._lo, self._hi)
+        rows = lambda x: None if x is None else x[mine]
         reseat = inputs.restart
         if inputs.join is not None:
             reseat = (inputs.join if reseat is None
                       else reseat | inputs.join)
         if reseat is not None:
-            self.apply_restarts(state, reseat)
-        loss, loss_w = self.local_phase(state, inputs.batches, inputs.round,
-                                        inputs.straggle, inputs.corrupt,
-                                        inputs.speed, inputs.active)
+            self.apply_restarts(state, reseat[mine])
+        loss, loss_w = self.local_phase(
+            state, inputs.batches, inputs.round, rows(inputs.straggle),
+            rows(inputs.corrupt), rows(inputs.speed), rows(inputs.active))
         metrics = self.comm_phase(state, inputs.fail, inputs.failed_recent,
                                   inputs.straggle, inputs.active)
         metrics["loss"] = loss
-        metrics["loss_w"] = loss_w
+        metrics["loss_w"] = (gather_rows(loss_w, self.group)
+                             if self._sharded else loss_w)
         return state, metrics

@@ -24,10 +24,15 @@ ground-truth masks echoed into the printed records. ``--groups G
 --global-period P`` (with ``--comm-mode fused``) runs hierarchical
 averaging: G racks, each with a sub-master its workers exchange with every
 round, and a global sync of the sub-masters with the master every P
-rounds; the round line adds the racks' ``g_h2`` on sync rounds. The flags
-of the slice not ported yet raise ``NotImplementedError`` naming it:
-``--placement sharded`` and ``--coordinator-address`` /
-``--num-processes`` / ``--process-id`` (multi-GPU placement).
+rounds; the round line adds the racks' ``g_h2`` on sync rounds. ``--placement sharded`` (with
+``--comm-mode fused``) splits the slot axis over the ranks of a
+``torch.distributed`` group, the capacity padded to a multiple of the
+world size; ``--coordinator-address HOST:PORT --num-processes N
+--process-id I`` starts rank I of an N-process run (one process per rank,
+rank 0's address for all; it needs ``--placement sharded``). With
+``--device cuda`` rank I runs on ``cuda:I % device_count``, over NCCL when
+every rank has a card of its own and over gloo when ranks share one. Only
+rank 0 prints the round lines; every rank prints ``final master l2=``.
 
     python -m repro_torch.launch.train --workers 8 --tau 4 --rounds 8
     python -m repro_torch.launch.train --device cpu --plain --rounds 5
@@ -37,6 +42,10 @@ of the slice not ported yet raise ``NotImplementedError`` naming it:
         --failure-scenario crash_restart --rounds 12
     python -m repro_torch.launch.train --workers 16 --tau 4 --rounds 8 \
         --comm-mode fused --groups 4 --global-period 2
+    python -m repro_torch.launch.train --workers 8 --tau 4 --rounds 8 \
+        --comm-mode fused --placement sharded \
+        --coordinator-address 127.0.0.1:29500 --num-processes 2 \
+        --process-id 0   # and --process-id 1 beside it
 """
 from __future__ import annotations
 
@@ -51,26 +60,7 @@ from repro_torch.configs.base import (FAILURE_SCENARIOS, MEMBERSHIP_SCENARIOS,
                                       ElasticConfig, OptimizerConfig)
 from repro_torch.core.scenarios import (parse_membership_plan, read_trace,
                                         write_trace)
-
-
-def _refuse_unported(args) -> None:
-    """Every flag of a slice not ported yet, set away from its default,
-    raises naming that slice."""
-    unported = [
-        ("--placement", args.placement != "single",
-         "multi-GPU placement (sharded)"),
-        ("--coordinator-address", args.coordinator_address is not None,
-         "multi-GPU placement (multi-process)"),
-        ("--num-processes", args.num_processes != 1,
-         "multi-GPU placement (multi-process)"),
-        ("--process-id", args.process_id != 0,
-         "multi-GPU placement (multi-process)"),
-    ]
-    for flag, is_set, slice_name in unported:
-        if is_set:
-            raise NotImplementedError(
-                f"{flag} belongs to the {slice_name} slice, which is not "
-                "ported to PyTorch yet")
+from repro_torch.launch.mesh import init_distributed, world_and_rank
 
 
 def main(argv=None):
@@ -158,7 +148,9 @@ def main(argv=None):
                          "kernel; cpu runs their plain PyTorch versions")
     ap.add_argument("--placement", default="single",
                     choices=("single", "sharded"),
-                    help="worker placement (sharded: not ported yet)")
+                    help="worker placement: sharded splits the slot "
+                         "axis over the ranks of a torch.distributed group "
+                         "(needs --comm-mode fused)")
     ap.add_argument("--groups", type=int, default=1,
                     help="hierarchical averaging: split the slot axis into "
                          "this many contiguous racks, each with a "
@@ -170,7 +162,8 @@ def main(argv=None):
                          "(needs --comm-mode fused)")
     ap.add_argument("--coordinator-address", default=None,
                     metavar="HOST:PORT",
-                    help="multi-process mesh (not ported yet)")
+                    help="multi-process run: rank 0's store address "
+                         "(needs --placement sharded)")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--controller", default="none",
@@ -192,7 +185,6 @@ def main(argv=None):
                          "schedule on identical data (the §VI convention)")
     ap.add_argument("--save", default=None)
     args = ap.parse_args(argv)
-    _refuse_unported(args)
 
     membership = args.membership_scenario
     plan = ()
@@ -219,12 +211,25 @@ def main(argv=None):
                        + [k for _, k in plan])
         if membership == "scale_up" and not args.membership_k:
             capacity = 2 * args.workers
+    device = args.device
+    if (args.num_processes > 1 or args.coordinator_address
+            or args.process_id):
+        if args.placement != "sharded":
+            raise SystemExit(
+                "--coordinator-address/--num-processes/--process-id need "
+                "--placement sharded (the worker axis must be split over "
+                "the ranks for a multi-process run to mean anything)")
+        device = str(init_distributed(args.coordinator_address,
+                                      args.num_processes, args.process_id,
+                                      args.device))
+    world, rank = world_and_rank()
     ecfg = ElasticConfig(
         num_workers=args.workers, capacity=capacity, tau=args.tau,
         alpha=args.alpha,
         overlap_ratio=args.overlap, failure_prob=args.failure_prob,
         dynamic=not args.no_dynamic, comm_mode=args.comm_mode,
-        staleness=args.staleness, failure_scenario=args.failure_scenario,
+        staleness=args.staleness, placement=args.placement,
+        failure_scenario=args.failure_scenario,
         score_clip=args.score_clip, u_zclip=args.u_zclip,
         byzantine_frac=args.byzantine_frac,
         byzantine_mode=args.byzantine_mode,
@@ -242,19 +247,28 @@ def main(argv=None):
         rounds_per_call=args.rounds_per_call, seed=args.seed,
         plain=not args.elastic, batch_size=args.batch_size, n_data=8000,
         n_test=1000, data_seed=args.data_seed, save_path=args.save,
-        device=args.device,
+        device=device,
         controller=(None if args.controller == "none" else args.controller),
         detector_blind=args.detector_blind)
     sess = ElasticSession(spec)
+    if sess.ecfg.placement == "sharded" and sess.capacity != ecfg.cap:
+        print(f"[train] padding capacity {ecfg.cap} -> {sess.capacity} "
+              f"(multiple of the {world} ranks; extra slots stay inactive)")
 
+    # multi-process runs: only rank 0 narrates (every rank runs the rounds;
+    # every rank prints the final master-l2 line, so a launcher can check
+    # that the ranks agree)
+    is_main = rank == 0
     t0 = time.time()
-    if not spec.plain and sess.schedule.has_hetero:
+    if is_main and not spec.plain and sess.schedule.has_hetero:
         print(f"[train] persistent slot speeds: "
               f"{np.asarray(sess.schedule.speed[0]).round(3).tolist()}",
               flush=True)
     records = []
     for rec in sess.run_iter():
         records.append(rec)
+        if not is_main:
+            continue
         if spec.plain:
             print(f"step {rec.round}: loss={rec.loss:.4f}", flush=True)
             continue
@@ -276,13 +290,13 @@ def main(argv=None):
               f"({time.time()-t0:.1f}s)", flush=True)
     l2 = float(torch.linalg.vector_norm(sess.master_params.double()))
     print(f"[train] final master l2={l2:.10e}", flush=True)
-    if sess.controller is not None:
+    if sess.controller is not None and is_main:
         applied = [a for a in sess.controller.actuator.log if a.applied]
         print(f"[control] {len(applied)} membership action(s) applied:")
         for a in applied:
             print(f"[control]   round {a.round}: {a.action.describe()} "
                   f"-> {a.live_after} live")
-    if args.dump_trace and sess.schedule is not None:
+    if args.dump_trace and sess.schedule is not None and is_main:
         write_trace(args.dump_trace, sess.schedule)
         print(f"[train] wrote scenario trace to {args.dump_trace}")
     if args.save:
@@ -291,4 +305,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

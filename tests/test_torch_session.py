@@ -174,12 +174,14 @@ def _assert_state_close(got, want, msg):
     assert int(got["round"]) == int(want["round"])
 
 
-def run_parity(method, k, comm, scenario):
+def run_parity(method, k, comm, scenario, placement="single"):
+    """``placement="sharded"`` runs the port's sharded code at world size
+    1 (no process group) against the reference's single placement."""
     rtrainer, state0 = _reference(method, k, comm)
     ekw, okw = _configs(method, k, comm)
     probes = {}
     ttrainer = TTrainer(TCNN(tget("paper-cnn")), TOpt(**okw),
-                        TElastic(**ekw), device="cpu",
+                        TElastic(**ekw, placement=placement), device="cpu",
                         probe_fn=lambda r, t, i: probes[r][t, i][None])
     tstate = ttrainer.state_from_numpy(state0)
     rstate = jax.tree.map(jnp.asarray, state0)
@@ -319,12 +321,14 @@ def test_first_order_curves_match_reference_run_one(method):
 
 
 def test_session_refuses_unported_features_by_name():
-    """Sharded placement (hierarchical or not) and LM training still raise
-    naming their slice. Membership (capacity, an ``active`` schedule), the
-    rule controller, ``detector_blind``, ``apply`` and hierarchy have
-    since been ported: they now construct (tests/test_torch_membership.py,
-    tests/test_torch_control.py and tests/test_torch_hierarchy.py run
-    them)."""
+    """LM training still raises naming its slice. Membership (capacity,
+    an ``active`` schedule), the rule controller, ``detector_blind``,
+    ``apply``, hierarchy and sharded placement have since been ported:
+    they now construct (tests/test_torch_membership.py,
+    tests/test_torch_control.py, tests/test_torch_hierarchy.py,
+    tests/test_torch_placement.py and tests/test_torch_distributed.py run
+    them); with no process group, sharded placement runs at world size
+    1."""
     hier = ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
     assert hier.trainer._n_groups == 3
     assert hier.state["submasters"].shape == (3, hier.layout.n)
@@ -332,9 +336,10 @@ def test_session_refuses_unported_features_by_name():
                                              comm_mode="fused")))
     assert hier.trainer._hier and hier.trainer._n_groups == 1
     for extra in ({}, {"groups": 3}):
-        with pytest.raises(NotImplementedError, match="sharded placement"):
-            ElasticSession(_spec(elastic=dict(placement="sharded",
-                                              comm_mode="fused", **extra)))
+        sharded = ElasticSession(_spec(elastic=dict(
+            placement="sharded", comm_mode="fused", **extra)))
+        assert sharded.trainer._world == 1 and sharded.capacity == 3
+        assert sharded.state["workers"].shape == (3, sharded.layout.n)
     with pytest.raises(NotImplementedError, match="LM training"):
         ElasticSession(_spec(model_cfg=tget("qwen3-4b", smoke=True)))
     assert ElasticSession(_spec(elastic=dict(capacity=4))).capacity == 4

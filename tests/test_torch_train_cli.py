@@ -78,9 +78,10 @@ def test_save_then_restore_and_trace_replay(tmp_path, capsys):
     assert torch.equal(replay.state["master"], sess.state["master"])
 
 
-# Each case keeps the ID it had while every flag below was refused. The
-# membership, closed-loop control and hierarchy flags have since been
-# ported: their cases now check that the flag runs and takes effect.
+# Each case keeps the ID it had while every flag below was refused. Every
+# slice has since been ported: each case now checks that the flag runs and
+# takes effect. The multi-process flags need ``--placement sharded`` (the
+# reference's rule); their two-rank run is tests/test_torch_distributed.py.
 FLAG_CASES = [
     (["--capacity", "6"], "membership"),
     (["--membership-scenario", "scale_up"], "membership"),
@@ -95,7 +96,8 @@ FLAG_CASES = [
     (["--coordinator-address", "localhost:1234"], "multi-process"),
     (["--num-processes", "2"], "multi-process"),
     (["--process-id", "1"], "multi-process")]
-PORTED = ("membership", "closed-loop control", "hierarchical")
+PORTED = ("membership", "closed-loop control", "hierarchical", "placement",
+          "multi-process")
 
 
 @pytest.mark.parametrize("flags,slice_name", [
@@ -108,6 +110,14 @@ def test_unported_flags_are_refused_by_name(flags, slice_name, capsys):
         with pytest.raises(NotImplementedError,
                            match=f"{flags[0]} belongs to .*{slice_name}"):
             ttrain.main(argv)
+        return
+    if slice_name == "multi-process":
+        with pytest.raises(SystemExit, match="need --placement sharded"):
+            ttrain.main(argv)
+        if flags[0] == "--process-id":  # rank 1 of a one-process run
+            with pytest.raises(ValueError, match="process id 1 outside"):
+                ttrain.main(argv + ["--placement", "sharded", "--comm-mode",
+                                    "fused"])
         return
     sess, records = ttrain.main(argv)
     out = capsys.readouterr().out
@@ -125,6 +135,9 @@ def test_unported_flags_are_refused_by_name(flags, slice_name, capsys):
         if flags[0] == "--global-period":  # round 0 is off the cycle
             assert not records[0].g_h2.any() and "g_h2=" not in \
                 out.splitlines()[0]
+    elif slice_name == "placement":  # world size 1: no group, no padding
+        assert sess.trainer._sharded and sess.trainer._world == 1
+        assert sess.capacity == 2 and "padding" not in out
     elif flags[0] == "--detector-blind":
         assert sess.spec.detector_blind
         assert not any(r.fail.any() for r in records)
