@@ -85,15 +85,43 @@ failure:
    launches exactly admits x 36 times, no other kernel runs, every logit
    is finite; then one static ``ServeEngine`` batch, and (6b) a
    ``torch.profiler`` window over one decode tick and one admit;
+6s. stablelm-3b at full size (2,795,443,200 bf16 params: LayerNorm, 25%
+   rotary, untied) through ``serve_continuous``: 16 bursty requests,
+   prompts of 1024 and 2048 padded to 2048, 64 new tokens, capacity 8;
+   counts zeroed just before: ``blockwise_attention`` admits x 32 times
+   (10 of 16 block pairs each), no kernel launched (head_dim 80), every
+   logit finite; one static batch at prompt 512 (``gqa_attention``, no
+   blockwise call); a ``torch.profiler`` window over one admit;
+6d. h2o-danube-1.8b at full size (1,831,201,280 params: window 4096,
+   untied): 8 requests, prompts of 4096 and 8192 padded to 8192, 32 new
+   tokens, capacity 4: blockwise admits x 24 times, 108 of 256 block
+   pairs each (the window masks), no kernel, every logit finite; a
+   profiler window over one admit;
+6w. hot-swap: qwen3-4b at full width cut to 4 layers; a baseline
+   checkpoint, a ``CheckpointWatcher`` on the continuous engine under a
+   ``Scheduler`` (``poll_every`` 8), a perturbed master saved at tick 10:
+   exactly one swap, at tick 16; in-flight tokens unchanged, every
+   request drained to its budget; post-swap tokens bit for bit those of a
+   fresh engine restored from the same checkpoint; flash launches admits
+   x 4; a checkpoint of another arch journalled once and skipped;
+   checkpoint bytes, restore, flip and polling-tick times printed;
 7. serving devices: 2 layers at full width in float32 on the card and on
    the CPU from the same params, prefill and 4 decode steps agree;
+7b. blockwise devices: ``blockwise_attention`` at danube's admit shape
+   (S=8192, window 4096) in float32 and bfloat16 against
+   ``naive_attention`` on the card, one kv head at a time (3e-5 / 2e-2),
+   timed at that shape and at stablelm-3b's (S=2048) beside
+   ``scaled_dot_product_attention`` with the same mask (timed only); then
+   phase 7 for stablelm-3b and h2o-danube-1.8b at 1024 tokens (the
+   blockwise branch);
 8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
    ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
    ``{"hierarchy": ...}`` line, a ``{"sharded": ...}`` line, a
+   ``{"dense_family": ...}`` line, a ``{"hotswap": ...}`` line, a
    ``{"kernels": [...]}`` line (the batched kernels' entries with their
    launches on the hierarchy run and on each rank of the sharded runs
-   too), the ``nvidia-smi`` line, and last the ``{"ok": true, ...}``
-   line.
+   too, flash attention's with its launches in phase 6w), the
+   ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
 port's sources are not beside this script.
@@ -1645,8 +1673,6 @@ def serving_path(torch):
     after; then one static ``ServeEngine`` batch (8 x 512, 32 steps)."""
     import argparse
 
-    import numpy as np
-
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import kernels, reset_launch_counts
     from repro_torch.launch.serve import serve_continuous, serve_static
@@ -1670,7 +1696,7 @@ def serving_path(torch):
     lm = WatchedLM(torch, model)
     args = argparse.Namespace(capacity=8, prompt_len=512, steps=64,
                               traffic=16, eos_id=None, poll_every=8,
-                              batch=8)
+                              batch=8, watch=None)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1682,31 +1708,11 @@ def serving_path(torch):
     want["flash_attention_fwd"] = admits * cfg.num_layers
     if launches != want:
         raise AssertionError(f"serving launches {launches}, expected {want}")
-    if not bool(lm.finite):
-        raise AssertionError("a non-finite logit on the serving path")
-    served = [r for r in results if r.reason != "rejected"]
-    if len(served) != 16 or admits != 16:
-        raise AssertionError(f"served {len(served)}/16, {admits} admits")
-    if any(r.num_tokens != 64 for r in served):
-        raise AssertionError("a request ended short of 64 tokens")
-    toks = sum(r.num_tokens for r in served)
-    ttft = np.array([r.ttft for r in served]) * 1e3
-    lat = np.array([r.latency for r in served]) * 1e3
-    stats = {
-        "served": len(served), "requests": len(results), "tokens": toks,
-        "virtual_s": sched.vnow, "wall_s": wall, "tok_s": toks / sched.vnow,
-        "req_s": len(served) / sched.vnow,
-        "ttft_ms_p50": float(np.percentile(ttft, 50)),
-        "ttft_ms_p99": float(np.percentile(ttft, 99)),
-        "latency_ms_p50": float(np.percentile(lat, 50)),
-        "latency_ms_p99": float(np.percentile(lat, 99)),
-        "ticks": sched.engine.ticks,
-        "prefill_ms_median": 1e3 * statistics.median(lm.times["prefill"]),
-        "decode_tick_ms_median": 1e3 * statistics.median(lm.times["decode"]),
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "flash_launches": launches["flash_attention_fwd"],
-    }
-    log(f"  continuous: served {len(served)}/{len(results)}, {toks} tokens, "
+    stats = _served_stats(torch, sched, results, lm, wall, 16, 64)
+    served, toks = stats["served"], stats["tokens"]
+    stats.update({"requests": len(results), "req_s": served / sched.vnow,
+                  "flash_launches": launches["flash_attention_fwd"]})
+    log(f"  continuous: served {served}/{len(results)}, {toks} tokens, "
         f"{stats['tok_s']:.1f} tok/s over {sched.vnow:.3f} s virtual "
         f"({wall:.3f} s wall), TTFT p50 {stats['ttft_ms_p50']:.1f} / p99 "
         f"{stats['ttft_ms_p99']:.1f} ms, latency p50 "
@@ -1806,31 +1812,33 @@ def profile_window(torch, name, fn, reps):
             "top_ms": {k: v / reps / 1e3 for k, v in top}}
 
 
-def serving_device_parity(torch):
-    """Phase 7: the serving path on the card (flash kernel) and on the CPU
-    (plain versions) from the same params: qwen3-4b at full width cut to 2
-    layers, float32. Prefill 512 tokens into a 512-position cache (the
-    flash branch, as an admit), adopt the cache into 516 positions, then 4
-    greedy decode steps fed the CPU's tokens. Logits agree within 1e-3 of
-    the logit scale (max |logit|): float32 matmuls in other summation
-    orders over d_model 2560 and d_ff 9728."""
+def serving_device_parity(torch, arch="qwen3-4b", S=512):
+    """Phase 7 (and 7b (b)): the serving path on the card and on the CPU
+    (plain versions) from the same params: ``arch`` at full width cut to 2
+    layers, float32. Prefill S tokens into an S-position cache (as an
+    admit: qwen3-4b at 512 takes the flash branch, the kernel on the card;
+    stablelm-3b and h2o-danube-1.8b at 1024 take ``blockwise_attention``,
+    once per layer on each device), adopt the cache into S + 4 positions,
+    then 4 greedy decode steps fed the CPU's tokens. Logits agree within
+    1e-3 of the logit scale (max |logit|): float32 matmuls in other
+    summation orders over d_model 2560 and d_ff 6912-9728."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
     from repro_torch.models.registry import build_model
     from repro_torch.nn.param import init_tree, tree_from_leaves, tree_leaves
 
-    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32",
-                                         param_dtype="float32")
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32",
+                                   param_dtype="float32")
     model = build_model(cfg)
     cpu = init_tree(torch.Generator().manual_seed(1), model.spec)
     card = tree_from_leaves((p, t.cuda()) for p, t in tree_leaves(cpu))
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 512))
-    S = toks.shape[1]
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S))
     outs = {}
     feed = []
+    bw = BlockwiseWatch()
     for dev, params in (("cpu", cpu), ("cuda", card)):
-        with torch.no_grad():
+        with torch.no_grad(), bw:
             batch = {"tokens": torch.as_tensor(toks, device=dev)}
             logits, scratch = model.prefill(params, batch,
                                             model.init_cache(1, S, dev))
@@ -1853,9 +1861,473 @@ def serving_device_parity(torch):
             raise AssertionError(f"serving card vs CPU, call {i}: max abs "
                                  f"err {err:.3g} > 1e-3 x {scale:.3g}")
         worst = max(worst, err / scale)
-        log(f"  {'prefill' if i == 0 else f'decode {i}'}: max abs err "
-            f"{err:.3g} (logit scale {scale:.3g})")
+        log(f"  {arch} {'prefill' if i == 0 else f'decode {i}'}: max abs "
+            f"err {err:.3g} (logit scale {scale:.3g})")
+    want_calls = 2 * cfg.num_layers if S >= 1024 else 0
+    if bw.calls != want_calls:
+        raise AssertionError(f"{arch}: {bw.calls} blockwise calls, "
+                             f"expected {want_calls}")
     return worst
+
+
+class BlockwiseWatch:
+    """Counts ``blockwise_attention`` calls made by the attention layer and
+    the per-block-pair steps (``nn/flash.py::kv_step``) inside them, by
+    wrapping both names where they are looked up, for the ``with`` block."""
+
+    def __init__(self):
+        self.calls = self.pairs = 0
+
+    def __enter__(self):
+        from repro_torch.nn import flash, layers
+
+        self._saved = [(layers, "blockwise_attention",
+                        layers.blockwise_attention),
+                       (flash, "kv_step", flash.kv_step)]
+        (_, _, attn), (_, _, step) = self._saved
+
+        def counted_attn(*a, **kw):
+            self.calls += 1
+            return attn(*a, **kw)
+
+        def counted_step(*a, **kw):
+            self.pairs += 1
+            return step(*a, **kw)
+
+        layers.blockwise_attention = counted_attn
+        flash.kv_step = counted_step
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host wall time of ``fn`` between two ``synchronize()`` calls,
+    after one warm-up call: for work that syncs inside itself or is
+    bounded by host dispatch, where device events would not bracket it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _served_stats(torch, sched, results, lm, wall, n_req, n_new):
+    """Phase 6's checks and numbers for one continuous run."""
+    import numpy as np
+
+    from repro_torch.nn.param import tree_leaves
+
+    served = [r for r in results if r.reason != "rejected"]
+    admits = len(lm.times["prefill"])
+    if len(served) != n_req or admits != n_req:
+        raise AssertionError(f"served {len(served)}/{n_req}, {admits} admits")
+    if any(r.num_tokens != n_new for r in served):
+        raise AssertionError(f"a request ended short of {n_new} tokens")
+    if not bool(lm.finite):
+        raise AssertionError("a non-finite logit on the serving path")
+    toks = sum(r.num_tokens for r in served)
+    ttft = np.array([r.ttft for r in served]) * 1e3
+    lat = np.array([r.latency for r in served]) * 1e3
+    return {
+        "served": len(served), "tokens": toks, "virtual_s": sched.vnow,
+        "wall_s": wall, "tok_s": toks / sched.vnow,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p99": float(np.percentile(lat, 99)),
+        "ticks": sched.engine.ticks, "admits": admits,
+        "prefill_ms_median": 1e3 * statistics.median(lm.times["prefill"]),
+        "decode_tick_ms_median": 1e3 * statistics.median(lm.times["decode"]),
+        "kv_cache_bytes": sum(t.nbytes for _, t in
+                              tree_leaves(sched.engine.cache)),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+# phases 6s and 6d: (arch, full-size params, continuous run, live block
+# pairs per blockwise call) — every admit pads to prompt_len, so every
+# admit is one full-sequence call per layer at that length
+DENSE_FAMILY = {
+    "stablelm-3b": (2_795_443_200, dict(capacity=8, prompt_len=2048,
+                                        steps=64, traffic=16), 10),
+    "h2o-danube-1.8b": (1_831_201_280, dict(capacity=4, prompt_len=8192,
+                                            steps=32, traffic=8), 108),
+}
+
+
+def dense_family_path(torch, arch: str):
+    """Phases 6s / 6d: one dense configuration at full size (bf16, random
+    weights drawn on the card from a seed) through ``launch/serve.py``'s
+    ``serve_continuous``. Counts zeroed just before the run and read just
+    after: ``blockwise_attention`` once per layer per admit, the live
+    block pairs of each call as the host's block rule predicts, no CUDA
+    kernel launched (head_dim 80 is outside the flash kernel's), every
+    logit finite. stablelm-3b adds one static ``ServeEngine`` batch at
+    prompt 512 (the plain ``gqa_attention`` branch: no blockwise call)."""
+    import argparse
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.launch.serve import serve_continuous, serve_static
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import init_tree, param_count
+
+    n_want, run, pairs = DENSE_FAMILY[arch]
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    n_params = param_count(model.spec)
+    if n_params != n_want:
+        raise AssertionError(f"{arch} has {n_params:,} params")
+    params = init_tree(torch.Generator(dev).manual_seed(0), model.spec, dev)
+    log(f"  {arch}: {n_params:,} params ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, norm {cfg.norm}, rotary "
+        f"{cfg.rotary_pct}, window {cfg.sliding_window}, tied "
+        f"{cfg.tie_embeddings}, {cfg.dtype})")
+
+    lm = WatchedLM(torch, model)
+    args = argparse.Namespace(eos_id=None, poll_every=8, batch=8,
+                              watch=None, **run)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with BlockwiseWatch() as bw:
+        t0 = time.perf_counter()
+        sched, results = serve_continuous(lm, params, args, cfg.vocab_size)
+        wall = time.perf_counter() - t0
+    launches = {n: x.launches for n, x in kernels().items()}
+    stats = _served_stats(torch, sched, results, lm, wall, run["traffic"],
+                          run["steps"])
+    admits = stats["admits"]
+    if any(launches.values()):
+        raise AssertionError(f"{arch} serving launched {launches}")
+    if bw.calls != admits * cfg.num_layers or bw.pairs != bw.calls * pairs:
+        raise AssertionError(
+            f"{arch}: {bw.calls} blockwise calls, {bw.pairs} block pairs; "
+            f"expected {admits} admits x {cfg.num_layers} layers, {pairs} "
+            "pairs each")
+    n_blocks = (run["prompt_len"] // 512) ** 2
+    stats.update({"params": n_params, "blockwise_calls": bw.calls,
+                  "live_block_pairs_per_call": pairs,
+                  "block_pairs_per_call": n_blocks,
+                  "flash_launches": launches["flash_attention_fwd"],
+                  **{k: run[k] for k in ("capacity", "prompt_len", "steps",
+                                         "traffic")}})
+    log(f"  continuous: {stats['served']} requests, {stats['tokens']} "
+        f"tokens, {stats['tok_s']:.1f} tok/s over {sched.vnow:.3f} s virtual "
+        f"({wall:.3f} s wall), TTFT p50 {stats['ttft_ms_p50']:.1f} / p99 "
+        f"{stats['ttft_ms_p99']:.1f} ms, latency p50 "
+        f"{stats['latency_ms_p50']:.1f} / p99 {stats['latency_ms_p99']:.1f} "
+        f"ms; {stats['ticks']} decode ticks of median "
+        f"{stats['decode_tick_ms_median']:.2f} ms, admit median "
+        f"{stats['prefill_ms_median']:.2f} ms; blockwise calls {bw.calls} = "
+        f"{admits} admits x {cfg.num_layers} layers, {pairs} of {n_blocks} "
+        f"block pairs each; flash launches 0; KV cache "
+        f"{stats['kv_cache_bytes']:,} B; peak memory "
+        f"{stats['max_memory_allocated_gb']:.2f} GB")
+
+    if arch == "stablelm-3b":
+        lm = WatchedLM(torch, model)
+        static = argparse.Namespace(batch=8, prompt_len=512, steps=32,
+                                    eos_id=None)
+        reset_launch_counts()
+        with BlockwiseWatch() as bw:
+            tok_s = serve_static(lm, params, static, cfg.vocab_size, dev)
+        moved = {n: x.launches for n, x in kernels().items()}
+        if any(moved.values()) or bw.calls:
+            raise AssertionError(f"static batch: {moved}, {bw.calls} "
+                                 "blockwise calls")
+        if not bool(lm.finite):
+            raise AssertionError("a non-finite logit in the static batch")
+        decode = lm.times["decode"][-31:]
+        stats.update({"static_tok_s": tok_s,
+                      "static_decode_step_ms_median":
+                          1e3 * statistics.median(decode),
+                      "static_prefill_ms": 1e3 * lm.times["prefill"][-1]})
+        log(f"  static: 8 x 512 prompt, 32 steps (gqa_attention): "
+            f"{tok_s:.1f} tok/s, decode step median "
+            f"{stats['static_decode_step_ms_median']:.2f} ms, prefill "
+            f"{stats['static_prefill_ms']:.2f} ms")
+
+    S = run["prompt_len"]
+    prompt = torch.zeros(1, S, dtype=torch.long, device=dev)
+    scratch = model.init_cache(1, S, dev)
+    with torch.no_grad():
+        stats["profile_admit"] = profile_window(
+            torch, f"{arch} admit prefill ({S} tokens, blockwise)",
+            lambda: model.prefill(params, {"tokens": prompt}, scratch), 1)
+    del params, scratch, sched, lm
+    torch.cuda.empty_cache()
+    return stats
+
+
+def blockwise_devices(torch):
+    """Phase 7b (a): ``blockwise_attention`` at h2o-danube-1.8b's admit
+    shape (B=1, S=8192, H=32, KVH=8, D=80, causal, window 4096), float32
+    and bfloat16, on the card against ``naive_attention`` on the card, run
+    one kv head (its 4 query heads) at a time to bound the S x S scores;
+    3e-5 in float32 (``tests/test_flash_blockwise.py``), 2e-2 in bfloat16.
+    Then timed per call (wall time: a call syncs once, for the block
+    bounds) at that shape and at stablelm-3b's (S=2048, H=KVH=32, causal),
+    beside one ``scaled_dot_product_attention`` call with the same mask
+    (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.nn.flash import (_pair_mask, blockwise_attention,
+                                      naive_attention)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    shapes = {"h2o-danube-1.8b": (1, 8192, 32, 8, 80, 4096),
+              "stablelm-3b": (1, 2048, 32, 32, 80, None)}
+    out = {}
+    for arch, (B, S, H, KVH, D, window) in shapes.items():
+        G = H // KVH
+        pos = torch.arange(S, device=dev).expand(B, S)
+        kw = dict(q_pos=pos, kv_pos=pos, causal=True, window=window)
+        for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
+            q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(B, S, KVH, D, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            name = f"{arch}/{str(dtype).removeprefix('torch.')}"
+            with BlockwiseWatch() as bw:
+                got = blockwise_attention(q, k, v, **kw)
+            worst = 0.0
+            if arch == "h2o-danube-1.8b":
+                for h in range(KVH):
+                    heads = slice(h * G, (h + 1) * G)
+                    want = naive_attention(q[:, :, heads], k[:, :, h:h + 1],
+                                           v[:, :, h:h + 1], **kw)
+                    torch.testing.assert_close(got[:, :, heads].float(),
+                                               want.float(), rtol=tol,
+                                               atol=tol)
+                    worst = max(worst, float((got[:, :, heads].float()
+                                              - want.float()).abs().max()))
+            ms = wall_ms(torch, lambda: blockwise_attention(q, k, v, **kw))
+            qt = q.transpose(1, 2)
+            kt, vt = (x.transpose(1, 2).repeat_interleave(G, 1)
+                      for x in (k, v))
+            mask = _pair_mask(pos[0, :, None], pos[0, None, :], True,
+                              window, None)
+            lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), reps=10)
+            out[name] = {"shape_bshkd": [B, S, H, KVH, D], "window": window,
+                         "block_pairs": bw.pairs, "ms": ms,
+                         "sdpa_ms": lib_ms}
+            if arch == "h2o-danube-1.8b":
+                out[name]["max_abs_err_vs_naive"] = worst
+            log(f"  blockwise {name} B,S,H,KVH,D={B, S, H, KVH, D} window "
+                f"{window}: {bw.pairs} live block pairs, "
+                + (f"max abs err vs naive {worst:.3g} (tol {tol}), "
+                   if arch == "h2o-danube-1.8b" else "")
+                + f"{ms:.2f} ms a call (wall), sdpa with the same mask "
+                f"{lib_ms:.3f} ms")
+            del q, k, v, got, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+HOTSWAP_LAYERS = 4  # qwen3-4b cut to 4 of 36 layers: 792,681,984 params
+
+
+def hotswap_path(torch):
+    """Phase 6w: checkpoint hot-swap into the continuous engine, qwen3-4b
+    at full width cut to 4 layers (bf16; a checkpoint stores bf16 as
+    float32, 3.2 GB here, 16 GB at full depth). A baseline checkpoint with
+    ``{"arch", "rounds"}`` metadata, then a ``CheckpointWatcher`` on the
+    engine, then a ``Scheduler`` (capacity 4, ``poll_every`` 8) over 6
+    requests (prompts 256 and 512, 32 new tokens); after tick 10 a
+    perturbed master is saved into the watched directory (standing in for
+    a training session's next save). Checks: one swap, applied at tick 16
+    (the first poll after the save; every poll on a multiple of 8); the
+    requests in flight keep their pre-swap tokens and drain to 32; after
+    the run a prompt decoded by the swapped engine and by a fresh engine
+    restored from the same checkpoint gives the same tokens, bit for bit
+    (and the params are bit-identical); flash launches admits x 4; a
+    checkpoint of another arch is journalled once and skipped."""
+    import dataclasses
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import (init_tree, param_count,
+                                      tree_from_leaves, tree_leaves)
+    from repro_torch.serving import (CheckpointWatcher, ContinuousEngine,
+                                     Scheduler)
+    from repro_torch.serving.traffic import TrafficConfig, synthetic_traffic
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b").replace(num_layers=HOTSWAP_LAYERS)
+    model = build_model(cfg)
+    n_params = param_count(model.spec)
+    if n_params != 792_681_984:
+        raise AssertionError(f"qwen3-4b at 4 layers has {n_params:,} params")
+    gen = torch.Generator(dev).manual_seed(3)
+    params = init_tree(gen, model.spec, dev)
+    perturbed = tree_from_leaves(
+        (p, (t.float() + 0.02 * torch.randn(t.shape, generator=gen,
+                                            device=dev)).to(t.dtype))
+        for p, t in tree_leaves(params))
+    stats = {"layers": HOTSWAP_LAYERS, "params": n_params}
+    timings = {"restore_s": [], "flip_s": []}
+    restore = checkpoint.restore
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        timings["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    capacity, prompt_len, steps, n_req = 4, 512, 32, 6
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "master")
+        t0 = time.perf_counter()
+        checkpoint.save(ck, params, metadata={"arch": cfg.name, "rounds": 0})
+        stats["save_s"] = time.perf_counter() - t0
+        stats["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        lm = WatchedLM(torch, model)
+        shape = dict(capacity=capacity, max_len=prompt_len + steps + 1,
+                     prefill_len=prompt_len)
+        engine = ContinuousEngine(lm, params, **shape)
+        watcher = CheckpointWatcher(engine, ck)
+        sched = Scheduler(engine, watcher=watcher, poll_every=8)
+        flip = engine.swap_params
+
+        def timed_flip(new):
+            t0 = time.perf_counter()
+            flip(new)
+            timings["flip_s"].append(time.perf_counter() - t0)
+
+        engine.swap_params = timed_flip
+        polls, pre_swap, tick_s = [], {}, []
+        poll = watcher.poll
+
+        def watched_poll():
+            polls.append(engine.ticks)
+            if not watcher.log:  # in-flight tokens just before any swap
+                pre_swap.clear()
+                pre_swap.update({engine._slots[s].rid:
+                                 list(engine._slots[s].tokens)
+                                 for s in engine.active_slots()})
+            return poll()
+
+        watcher.poll = watched_poll
+        tick = sched.tick
+
+        def timed_tick():
+            t0 = time.perf_counter()
+            out = tick()
+            tick_s.append((engine.ticks, time.perf_counter() - t0,
+                           bool(polls) and polls[-1] == engine.ticks))
+            if engine.ticks == 10 and "perturbed_save_s" not in stats:
+                t1 = time.perf_counter()
+                checkpoint.save(ck, perturbed,
+                                metadata={"arch": cfg.name, "rounds": 1})
+                stats["perturbed_save_s"] = time.perf_counter() - t1
+            return out
+
+        sched.tick = timed_tick
+        # every request arrives at t=0, so 4 are in flight at tick 16
+        trace = [dataclasses.replace(r, arrival=0.0) for r in
+                 synthetic_traffic(TrafficConfig(
+                     num_requests=n_req, prompt_lens=(256, 512),
+                     max_new=steps, vocab_size=cfg.vocab_size,
+                     seed=0))]
+        checkpoint.restore = timed_restore
+        reset_launch_counts()
+        try:
+            results = sched.run(trace)
+        finally:
+            checkpoint.restore = restore
+            watcher.poll = poll
+        launches = {n: x.launches for n, x in kernels().items()}
+        admits = len(lm.times["prefill"])
+        want = {n: 0 for n in launches}
+        want["flash_attention_fwd"] = admits * HOTSWAP_LAYERS
+        if launches != want:
+            raise AssertionError(f"hot-swap launches {launches}, "
+                                 f"expected {want}")
+        applied = [e for e in watcher.log if e.applied]
+        if (len(watcher.log) != 1 or len(applied) != 1 or engine.swaps != 1
+                or applied[0].tick != 16 or applied[0].rounds != 1):
+            raise AssertionError(f"swap journal {watcher.log}, "
+                                 f"{engine.swaps} swaps")
+        if any(t % 8 for t in polls) or polls[:2] != [8, 16]:
+            raise AssertionError(f"polls at ticks {polls}")
+        if not bool(lm.finite):
+            raise AssertionError("a non-finite logit in the hot-swap run")
+        by_rid = {r.rid: r for r in results}
+        if len(by_rid) != n_req or any(
+                r.num_tokens != steps for r in results):
+            raise AssertionError("a request was dropped or cut short")
+        if not pre_swap:
+            raise AssertionError("no request was in flight at the swap")
+        for rid, toks in pre_swap.items():
+            if by_rid[rid].tokens[:len(toks)].tolist() != toks:
+                raise AssertionError(f"request {rid}'s pre-swap tokens "
+                                     "changed")
+        for (path, a), (_, b) in zip(tree_leaves(engine.params),
+                                     tree_leaves(perturbed)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"swapped leaf {path} != the saved one")
+
+        fresh_params, _ = checkpoint.restore(ck, like=params)
+        fresh = ContinuousEngine(model, fresh_params, **shape)
+        prompt = trace[0].prompt
+        outs = []
+        for eng in (engine, fresh):
+            eng.admit(prompt, max_new=steps, rid=99)
+            done = []
+            while eng.num_active:
+                done += eng.step()
+            outs.append(done[-1].tokens.tolist())
+        if outs[0] != outs[1]:
+            raise AssertionError("post-swap tokens differ from a fresh "
+                                 "engine restored from the checkpoint")
+
+        checkpoint.save(ck, {"w": torch.zeros(3)},
+                        metadata={"arch": "stablelm-3b", "rounds": 2})
+        if watcher.poll() or watcher.poll() or len(watcher.log) != 2:
+            raise AssertionError(f"arch mismatch not skipped once: "
+                                 f"{watcher.log}")
+        if "arch mismatch" not in watcher.log[-1].note or engine.swaps != 1:
+            raise AssertionError(f"arch mismatch journal {watcher.log[-1]}")
+    swap_tick = [s for t, s, p in tick_s if t == applied[0].tick and p]
+    plain_ticks = [s for t, s, p in tick_s if not p]
+    stats.update({
+        "swaps_applied": watcher.swaps_applied, "swap_tick": 16,
+        "polls": polls, "admits": admits,
+        "flash_launches": launches["flash_attention_fwd"],
+        "in_flight_at_swap": sorted(pre_swap),
+        "standby_restore_ms": 1e3 * timings["restore_s"][0],
+        "flip_ms": 1e3 * timings["flip_s"][0],
+        "polling_tick_ms": 1e3 * swap_tick[0],
+        "median_tick_ms": 1e3 * statistics.median(plain_ticks),
+        "post_swap_tokens_match_fresh": True,
+        "arch_mismatch_journalled": watcher.log[-1].note})
+    log(f"  {n_params:,} params ({HOTSWAP_LAYERS} layers); checkpoint "
+        f"{stats['checkpoint_bytes']:,} B, save {stats['save_s']:.2f} s "
+        f"(perturbed save {stats['perturbed_save_s']:.2f} s); 1 swap at "
+        f"tick 16 (polls {polls}), requests {sorted(pre_swap)} in flight "
+        f"kept their tokens; standby restore {stats['standby_restore_ms']:.1f}"
+        f" ms, flip {stats['flip_ms']:.3f} ms; the polling tick "
+        f"{stats['polling_tick_ms']:.1f} ms beside a median tick "
+        f"{stats['median_tick_ms']:.2f} ms; flash launches "
+        f"{stats['flash_launches']} = {admits} admits x {HOTSWAP_LAYERS}; "
+        f"post-swap tokens = fresh engine's; arch mismatch journalled once")
+    del params, perturbed, fresh_params, engine, fresh, lm
+    torch.cuda.empty_cache()
+    return launches, stats
 
 
 def main() -> int:
@@ -1953,8 +2425,32 @@ def main() -> int:
                 kind: counts[name] for kind, counts in
                 sharded["launches_per_rank"].items()}
 
+    family = {}
+    for phase, arch in (("6s", "stablelm-3b"), ("6d", "h2o-danube-1.8b")):
+        log(f"[{phase}] {arch} at full size through launch/serve.py "
+            "(blockwise prefill)")
+        t0 = time.perf_counter()
+        family[arch] = dense_family_path(torch, arch)
+        family[arch]["phase_s"] = time.perf_counter() - t0
+    log(f"[6w] hot-swap: qwen3-4b width, {HOTSWAP_LAYERS} layers, "
+        "CheckpointWatcher on the continuous engine")
+    t0 = time.perf_counter()
+    swap_counts, hotswap = hotswap_path(torch)
+    hotswap["phase_s"] = time.perf_counter() - t0
+    for entry in table:
+        if entry["name"] == "flash_attention_fwd":
+            entry["hotswap_launches"] = swap_counts["flash_attention_fwd"]
+
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
     serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
+    log("[7b] blockwise attention on the card vs naive; stablelm-3b and "
+        "h2o-danube-1.8b card vs CPU at 1024 tokens")
+    t0 = time.perf_counter()
+    family["blockwise"] = blockwise_devices(torch)
+    for arch in ("stablelm-3b", "h2o-danube-1.8b"):
+        family[arch]["card_vs_cpu_rel_err"] = serving_device_parity(
+            torch, arch, 1024)
+    family["phase_7b_s"] = time.perf_counter() - t0
 
     log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train_cli": cli}))
@@ -1963,6 +2459,8 @@ def main() -> int:
     print(json.dumps({"control": control}))
     print(json.dumps({"hierarchy": hierarchy}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"dense_family": family}))
+    print(json.dumps({"hotswap": hotswap}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -280,7 +280,7 @@ class OptimizerConfig:
 
 
 ARCH_ALIASES = {"paper-cnn": "paper_cnn"}
-PORTED_ARCHS = ("paper_cnn", "qwen3_4b")
+PORTED_ARCHS = ("paper_cnn", "qwen3_4b", "stablelm_3b", "h2o_danube_1_8b")
 
 
 def normalize_arch(arch: str) -> str:

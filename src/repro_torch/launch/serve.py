@@ -9,14 +9,20 @@ The port of ``repro.launch.serve``, with the same flags plus ``--device``
 - **continuous** (``--traffic N``): N synthetic bursty requests replayed
   through ``Scheduler`` + ``ContinuousEngine`` on the virtual clock,
   reporting req/s, tok/s, time to first token and latency p50/p99.
+  ``--watch DIR`` attaches a ``CheckpointWatcher``, so a training session
+  saving into DIR hot-swaps the served params mid-run (polled every
+  ``--poll-every`` decode ticks).
 
-Weights are drawn from a seed on the serving device (``--seed``);
-``--restore`` and ``--watch`` need checkpoint hot-swap
-(``serving/hotswap.py``), which is not ported yet, and raise.
+Weights are drawn from a seed on the serving device (``--seed``), or
+read from a checkpoint with ``--restore DIR`` (its recorded arch is
+checked against ``--arch`` first).
 
     python -m repro_torch.launch.serve --arch qwen3-4b --full --traffic 16 \\
         --prompt-len 512 --steps 64
-    python -m repro_torch.launch.serve --device cpu --traffic 4
+    python -m repro_torch.launch.serve --arch stablelm-3b --full \\
+        --traffic 16 --prompt-len 2048 --steps 64
+    python -m repro_torch.launch.serve --device cpu --traffic 4 \\
+        --restore ck --watch ck
 """
 from __future__ import annotations
 
@@ -26,12 +32,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.nn.param import init_tree, param_count
 from repro_torch.serving.continuous import ContinuousEngine
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.hotswap import CheckpointWatcher
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.traffic import TrafficConfig, synthetic_traffic
 
@@ -74,12 +82,18 @@ def serve_static(model, params, args, vocab_size: int, device):
 
 
 def serve_continuous(model, params, args, vocab_size: int):
-    """Replay a synthetic trace; returns (scheduler, results)."""
+    """Replay a synthetic trace, hot-swapping from ``args.watch`` if set;
+    returns (scheduler, results)."""
     engine = ContinuousEngine(
         model, params, capacity=args.capacity,
         max_len=args.prompt_len + args.steps + 1,
         prefill_len=args.prompt_len, eos_id=args.eos_id)
-    sched = Scheduler(engine, poll_every=args.poll_every)
+    watcher = None
+    if args.watch:
+        watcher = CheckpointWatcher(engine, args.watch)
+        print(f"[serve] watching {args.watch} for new checkpoints "
+              f"(arch guard: {watcher.expect_arch})")
+    sched = Scheduler(engine, watcher=watcher, poll_every=args.poll_every)
     trace = synthetic_traffic(TrafficConfig(
         num_requests=args.traffic,
         prompt_lens=tuple(sorted({max(1, args.prompt_len // 2),
@@ -99,6 +113,8 @@ def serve_continuous(model, params, args, vocab_size: int):
           f"p99 {np.percentile(ttft, 99) * 1e3:.1f}ms; "
           f"latency p50 {np.percentile(lat, 50) * 1e3:.1f}ms "
           f"p99 {np.percentile(lat, 99) * 1e3:.1f}ms")
+    if watcher is not None:
+        print(f"[serve] hot-swaps applied: {watcher.swaps_applied}")
     return sched, results
 
 
@@ -129,18 +145,27 @@ def main(argv=None):
     ap.add_argument("--poll-every", type=int, default=8,
                     help="decode ticks between --watch polls")
     args = ap.parse_args(argv)
-    for flag in ("restore", "watch"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} needs checkpoint hot-swap into the serving "
-                "engines (serving/hotswap.py), which is not ported to "
-                "PyTorch yet")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     params = init_tree(torch.Generator(device).manual_seed(args.seed),
                        model.spec, device)
+    if args.restore:
+        # check the manifest before paying for (or failing inside) the
+        # restore: a different arch fails on missing params, and the
+        # warning says why
+        meta = checkpoint.read_metadata(args.restore)
+        ck_arch = meta.get("arch")
+        if ck_arch is not None and ck_arch != cfg.name:
+            print(f"[serve] WARNING: checkpoint {args.restore!r} was saved "
+                  f"from arch {ck_arch!r} but --arch resolves to "
+                  f"{cfg.name!r}: the restore below fails unless the "
+                  "parameter trees happen to match; check the flags")
+        params, _ = checkpoint.restore(args.restore, like=params)
+        if meta.get("rounds") is not None:
+            print(f"[serve] restored {args.restore} "
+                  f"(arch={ck_arch or '?'}, rounds={meta['rounds']})")
     print(f"serving {cfg.name}: {param_count(model.spec):,} params on "
           f"{device}")
     if args.traffic > 0:

@@ -1,10 +1,11 @@
 """Decoder-only transformer LM, dense family (``repro.models.dense``).
 
-Covers the dense configurations that use RMSNorm, a SwiGLU MLP and tied
-embeddings (qwen3-4b); every other feature of the family — layernorm,
-gelu, untied unembeddings (stablelm-3b, h2o-danube-1.8b), M-RoPE, and the
-MoE layers of ``nn/moe.py`` — raises by name. The parameter tree is the
-reference's, leaf for leaf: ``embed``, ``final_norm`` and the stacked
+Covers the family's dense configurations (qwen3-4b, stablelm-3b,
+h2o-danube-1.8b): RMSNorm or LayerNorm, SwiGLU, GeGLU or GELU MLPs, tied
+or untied unembeddings, full or partial rotary, sliding windows and
+attention chunks. M-RoPE and the MoE layers of ``nn/moe.py`` raise by
+name. The parameter tree is the reference's, leaf for leaf: ``embed``
+(with ``unembed`` when untied), ``final_norm`` and the stacked
 ``dense_layers`` with a leading layer axis, which a Python loop walks in
 place of the reference's ``lax.scan``. The KV cache is ``{"dense": {"k",
 "v"}}`` of shape (layers, B, S, KVH, D) and is updated in place: the
@@ -52,14 +53,10 @@ class DecoderLM:
             raise NotImplementedError(
                 f"{cfg.name}: mixture-of-experts layers (nn/moe.py) are not "
                 "ported to PyTorch yet")
-        unported = [f"{k}={getattr(cfg, k)!r}" for k, ported in (
-            ("norm", cfg.norm == "rmsnorm"), ("act", cfg.act == "swiglu"),
-            ("tie_embeddings", cfg.tie_embeddings),
-            ("rope_mode", cfg.rope_mode != "mrope")) if not ported]
-        if unported:
+        if cfg.rope_mode == "mrope":
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} (nn/layers.py) not "
-                "ported to PyTorch yet")
+                f"{cfg.name}: rope_mode='mrope' (nn/layers.py) not ported "
+                "to PyTorch yet")
         self.cfg = cfg
         self.n_dense = cfg.num_layers
         self.spec = {

@@ -1,5 +1,6 @@
-"""Core transformer layers of the dense decoder: norms, RoPE, GQA attention
-(causal / sliding-window / chunked, with a KV cache), MLPs, embeddings.
+"""Core transformer layers of the dense decoder: norms, RoPE (full or
+partial), GQA attention (causal / sliding-window / chunked, with a KV
+cache), MLPs, embeddings.
 
 Mirrors ``repro.nn.layers`` function for function, in the same layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, activations ``(B, S, H, D)``) and
@@ -8,13 +9,14 @@ float32 and cast back, einsums cast the parameters to the activations'
 dtype, attention scores are float32 and the probabilities are cast to
 ``v``'s dtype. Parameters arrive as dicts of tensors.
 
-Left out until their slices: layernorm, the gelu / geglu MLPs and untied
-unembeddings (stablelm-3b, h2o-danube-1.8b; ``DecoderLM`` refuses them),
-cross-attention (``kv_x`` / ``kv_precomputed`` of the encoder-decoder and
-VLM families), M-RoPE, and the blockwise attention of ``nn/flash.py`` (a
-full-sequence ``Sq >= 1024`` call raises instead of running another
-algorithm). The reference's ``logical_constraint`` calls are no-ops on one
-device and are dropped.
+Norms are RMSNorm or LayerNorm, MLPs SwiGLU, GeGLU or GELU (the tanh
+form, as ``jax.nn.gelu``'s default), the unembedding tied or a leaf of its
+own. Attention dispatches as the reference does: the flash kernel, the
+blockwise attention of ``nn/flash.py`` for long full-sequence calls, or
+the plain ``gqa_attention``. Left out until their slices: cross-attention
+(``kv_x`` / ``kv_precomputed`` of the encoder-decoder and VLM families)
+and M-RoPE (``DecoderLM`` refuses it). The reference's
+``logical_constraint`` calls are no-ops on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
-from repro_torch.nn.param import ParamSpec, fan_in_init, normal_init, ones_init
+from repro_torch.nn.flash import blockwise_attention
+from repro_torch.nn.param import (ParamSpec, fan_in_init, normal_init,
+                                  ones_init, zeros_init)
 
 NEG_INF = -1e30
 
@@ -36,13 +40,23 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def norm_specs(cfg: ModelConfig, d: Optional[int] = None):
-    return {"scale": ParamSpec((d or cfg.d_model,), torch.float32,
-                               ones_init)}
+    d = d or cfg.d_model
+    p = {"scale": ParamSpec((d,), torch.float32, ones_init)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ParamSpec((d,), torch.float32, zeros_init)
+    return p
 
 
 def apply_norm(params, x, cfg: ModelConfig):
-    """RMSNorm in float32, cast back to ``x``'s dtype."""
-    return rms_norm(x, params["scale"], cfg.norm_eps)
+    """RMSNorm or LayerNorm in float32, cast back to ``x``'s dtype."""
+    if cfg.norm != "layernorm":
+        return rms_norm(x, params["scale"], cfg.norm_eps)
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + cfg.norm_eps)
+    return (y * params["scale"] + params["bias"]).to(dtype)
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -156,9 +170,10 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     ``use_pallas``: under the flash kernel's shape conditions
     (``Sq == Skv``, ``Sq % 128 == 0``, ``hd`` in {64, 128}, full rotary)
     the flash wrapper runs (the CUDA kernel on the card, its plain
-    version on the CPU); otherwise ``Sq >= 1024`` would take the
-    reference's blockwise path, which is not ported and raises; else the
-    plain ``gqa_attention``. Returns ``(out, cache)``.
+    version on the CPU); otherwise a call with ``Sq >= 1024`` and both
+    lengths multiples of 512 runs ``blockwise_attention`` (plain PyTorch
+    on either device); else the plain ``gqa_attention``. Returns
+    ``(out, cache)``.
     """
     B, Sq, _ = x.shape
     dt = x.dtype
@@ -187,10 +202,9 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
             window=cfg.sliding_window, chunk=cfg.attention_chunk)
     elif Sq >= 1024 and Sq % 512 == 0 and Skv % 512 == 0:
-        raise NotImplementedError(
-            f"attention at Sq={Sq}, Skv={Skv} takes the reference's "
-            "blockwise path (nn/flash.py::blockwise_attention), which is "
-            "not ported to PyTorch yet")
+        out = blockwise_attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+            window=cfg.sliding_window, chunk=cfg.attention_chunk)
     else:
         out = gqa_attention(q, k, v, _attn_mask(q_pos, kv_pos, cfg, True))
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
@@ -216,19 +230,32 @@ def gqa_attention(q, k, v, mask):
 
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "wi_gate": ParamSpec((d, f), cfg.pdtype, fan_in_init(0)),
+            "wi_up": ParamSpec((d, f), cfg.pdtype, fan_in_init(0)),
+            "wo": ParamSpec((f, d), cfg.pdtype, fan_in_init(0)),
+        }
     return {
-        "wi_gate": ParamSpec((d, f), cfg.pdtype, fan_in_init(0)),
-        "wi_up": ParamSpec((d, f), cfg.pdtype, fan_in_init(0)),
+        "wi": ParamSpec((d, f), cfg.pdtype, fan_in_init(0)),
         "wo": ParamSpec((f, d), cfg.pdtype, fan_in_init(0)),
     }
 
 
 def apply_mlp(params, x, cfg: ModelConfig):
-    """SwiGLU."""
+    """SwiGLU, GeGLU, or a GELU MLP (``wi`` / ``wo``). GELU is the tanh
+    approximation, ``jax.nn.gelu``'s default; the exact erf form differs
+    by ~1e-3."""
     dt = x.dtype
-    g = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dt))
-    u = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dt))
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, params["wo"].to(dt))
+    if cfg.act in ("swiglu", "geglu"):
+        g = torch.einsum("bsd,df->bsf", x, params["wi_gate"].to(dt))
+        u = torch.einsum("bsd,df->bsf", x, params["wi_up"].to(dt))
+        g = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * u
+    else:
+        h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dt))
+        h = F.gelu(h, approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +263,14 @@ def apply_mlp(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def embedding_specs(cfg: ModelConfig):
-    """Tied: the unembedding is the embedding's transpose."""
-    return {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), cfg.pdtype,
-                                   normal_init(0.02))}
+    """Tied: the unembedding is the embedding's transpose; untied: a
+    leaf ``unembed`` of shape (d_model, vocab)."""
+    p = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                                normal_init(0.02))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.pdtype,
+                                 normal_init(0.02))
+    return p
 
 
 def embed(params, tokens, cfg: ModelConfig):
@@ -246,4 +278,7 @@ def embed(params, tokens, cfg: ModelConfig):
 
 
 def unembed(params, x, cfg: ModelConfig):
-    return torch.einsum("bsd,vd->bsv", x, params["embedding"].to(x.dtype))
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x,
+                            params["embedding"].to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, params["unembed"].to(x.dtype))

@@ -1,8 +1,8 @@
 """Scheduler: wait-queue admission and decode ticking over the slot pool.
 
 A copy of ``repro.serving.scheduler`` (numpy only; tests hold the two to
-the same results). The watcher hook stays: any object with ``poll()``
-serves, though the port's checkpoint hot-swap is not written yet.
+the same results). The watcher is any object with ``poll()``:
+``repro_torch.serving.hotswap.CheckpointWatcher`` in the port.
 
 The :class:`ContinuousEngine` owns the device math and the slot pool; the
 scheduler owns *policy*: FIFO admission from a bounded wait queue,
@@ -10,7 +10,7 @@ prefill/decode interleaving (at most ``max_admissions_per_tick`` prefills
 between decode steps, so a burst of arrivals cannot starve in-flight
 requests of decode ticks), per-request deadlines (missed ⇒ the slot is
 evicted and reclaimed), and periodic hot-swap polling through an attached
-watcher (``repro.serving.hotswap.CheckpointWatcher`` in the reference).
+watcher.
 
 Time is **virtual**: the clock advances by the measured wall duration of
 each engine call, and request arrivals are timestamps on that clock. A

@@ -5,7 +5,9 @@ rtol 2e-5, atol 2e-6; batched
 elastic exchange rtol 1e-5, atol 1e-6; one-worker exchange 1e-6), flash
 attention over the CPU tests' sweep plus qwen3-4b's prefill shape (2e-5
 in float32, 2e-2 in bfloat16; bfloat16 runs the tensor-core kernel, swept
-over D, S, GQA ratio and every mask). Marked ``cuda``: without a card
+over D, S, GQA ratio and every mask), and the blockwise attention of
+``nn/flash.py`` (plain PyTorch) against its naive oracle on the card
+(3e-5 in float32, 2e-2 in bfloat16). Marked ``cuda``: without a card
 every test skips. Imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -207,3 +209,30 @@ def test_flash_bf16_tensor_core_sweep(cuda, D, S, group, mask):
     want = tfla.flash_attention_plain(q, k, v, **mask)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mask", [dict(causal=True, window=700),
+                                  dict(causal=True, chunk=512)])
+def test_blockwise_attention_on_the_card(cuda, dtype, tol, mask):
+    """The blockwise attention of ``nn/flash.py`` (plain PyTorch, run on
+    the card: head_dim 80 takes it, not the flash kernel) against the
+    naive oracle on the card, at danube's head shape over 2048 tokens;
+    3e-5 in float32 (``tests/test_flash_blockwise.py``), 2e-2 in
+    bfloat16. No kernel launches."""
+    from repro_torch.nn.flash import blockwise_attention, naive_attention
+
+    B, S, H, KVH, D = 1, 2048, 32, 8, 80
+    gen = torch.Generator(cuda).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, KVH, D, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(S, device=cuda).expand(B, S)
+    reset_launch_counts()
+    got = blockwise_attention(q, k, v, q_pos=pos, kv_pos=pos, **mask)
+    assert not any(x.launches for x in kernels().values())
+    want = naive_attention(q, k, v, q_pos=pos, kv_pos=pos, **mask)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

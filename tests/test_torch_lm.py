@@ -222,14 +222,31 @@ def test_attention_dispatch(monkeypatch, Sq, cache_len, hd, branch):
                       "gqa": "gqa_attention"}[branch]]
 
 
-def test_blockwise_branch_raises_by_name():
-    _, tcfg = _cfgs("float32")
-    tm = tbuild(tcfg.replace(head_dim=32))
-    params = init_tree(torch.Generator().manual_seed(0), tm.spec)
-    att = {k: v[0] for k, v in params["dense_layers"]["attn"].items()}
-    x = torch.zeros(1, 1024, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="blockwise_attention"):
-        tlayers.multihead_attention(att, x, tm.cfg)
+def test_blockwise_branch_raises_by_name(monkeypatch):
+    """A 1024-token full-sequence call outside the flash branch (hd 32)
+    takes ``blockwise_attention`` (``nn/flash.py``), once, and agrees
+    with the reference's (which takes its own blockwise path there)."""
+    rcfg, tcfg = _cfgs("float32")
+    rcfg, tcfg = rcfg.replace(head_dim=32), tcfg.replace(head_dim=32)
+    rparams = jax.device_get(rinit(jax.random.key(2), rbuild(rcfg).spec))
+    ratt = jax.tree.map(lambda a: a[0], rparams["dense_layers"]["attn"])
+    taken = []
+    for name in ("flash_attention_bshd", "blockwise_attention",
+                 "gqa_attention"):
+        fn = getattr(tlayers, name)
+        monkeypatch.setattr(tlayers, name, lambda *a, _f=fn, _n=name, **k:
+                            taken.append(_n) or _f(*a, **k))
+    x = np.random.default_rng(6).standard_normal(
+        (1, 1024, tcfg.d_model)).astype(np.float32)
+    pos = np.arange(1024)[None]
+    want, _ = rlayers.multihead_attention(
+        ratt, jnp.asarray(x), rcfg,
+        angles=rlayers.rope_angles(jnp.asarray(pos), rcfg))
+    got, _ = tlayers.multihead_attention(
+        params_from_numpy(ratt), torch.from_numpy(x), tcfg,
+        angles=tlayers.rope_angles(torch.from_numpy(pos), tcfg))
+    assert taken == ["blockwise_attention"]
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
 
 # -- the model ----------------------------------------------------------------
@@ -286,15 +303,19 @@ def test_loss_matches_reference():
 
 
 def test_unported_families_raise_by_name():
+    """MoE, M-RoPE and the other families raise by name; layernorm, the
+    gelu MLPs and untied unembeddings build (tests/test_torch_dense_family.py
+    holds them to the reference)."""
     with pytest.raises(NotImplementedError, match="nn/moe.py"):
         tbuild(tget("qwen3_4b", smoke=True).replace(num_experts=4))
     with pytest.raises(NotImplementedError, match="hybrid"):
         tbuild(tget("qwen3_4b", smoke=True).replace(family="hybrid"))
     smoke = tget("qwen3_4b", smoke=True)
-    for kw in (dict(rope_mode="mrope"), dict(norm="layernorm"),
-               dict(act="gelu"), dict(tie_embeddings=False)):
-        key, val = next(iter(kw.items()))
-        with pytest.raises(NotImplementedError, match=f"{key}={val!r}"):
-            tbuild(smoke.replace(**kw))
+    with pytest.raises(NotImplementedError, match="rope_mode='mrope'"):
+        tbuild(smoke.replace(rope_mode="mrope"))
+    for kw, leaf in ((dict(norm="layernorm"), ("final_norm", "bias")),
+                     (dict(act="gelu"), ("dense_layers", "mlp", "wi")),
+                     (dict(tie_embeddings=False), ("embed", "unembed"))):
+        assert leaf in dict(tree_leaves(tbuild(smoke.replace(**kw)).spec))
     assert len(spec_leaves(rbuild(rget("qwen3_4b", smoke=True)).spec)) == \
         len(tree_leaves(tbuild(tget("qwen3_4b", smoke=True)).spec))

@@ -27,6 +27,7 @@ from repro.configs.base import get_config as rget
 from repro.models.registry import build_model as rbuild
 from repro.nn.param import init_tree as rinit
 from repro.serving.continuous import ContinuousEngine as RContinuous
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs.base import get_config as tget
 from repro_torch.kernels import kernels
 from repro_torch.kernels.flash_attention import ops as tflash
@@ -320,7 +321,7 @@ def test_validation_errors(smoke):
         ContinuousEngine(type("M", (), {"cfg": tget("paper-cnn")})(), params)
 
 
-def test_serve_cli_on_the_cpu(capsys):
+def test_serve_cli_on_the_cpu(capsys, tmp_path):
     tserve.main(["--device", "cpu", "--traffic", "3", "--steps", "4",
                  "--prompt-len", "8"])
     out = capsys.readouterr().out
@@ -328,9 +329,27 @@ def test_serve_cli_on_the_cpu(capsys):
     tserve.main(["--device", "cpu", "--batch", "2", "--steps", "3",
                  "--prompt-len", "8", "--eos-id", "5"])
     assert "trial 1:" in capsys.readouterr().out
-    for flag in ("--restore", "--watch"):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            tserve.main(["--device", "cpu", flag, "/nonexistent"])
+    # --restore reads the master (arch checked first), --watch attaches a
+    # watcher whose baseline is the checkpoint on disk: nothing to swap
+    cfg = tget("qwen3_4b", smoke=True)
+    params = init_tree(torch.Generator().manual_seed(5),
+                       tbuild(cfg).spec)
+    for arch, name in ((cfg.name, "ck"), ("stablelm-smoke", "other")):
+        checkpoint.save(str(tmp_path / name), params,
+                        metadata={"arch": arch, "rounds": 3})
+    ck = str(tmp_path / "ck")
+    tserve.main(["--device", "cpu", "--traffic", "3", "--steps", "4",
+                 "--prompt-len", "8", "--restore", ck, "--watch", ck,
+                 "--poll-every", "1"])
+    out = capsys.readouterr().out
+    assert f"restored {ck} (arch=qwen3-smoke, rounds=3)" in out
+    assert "(arch guard: qwen3-smoke)" in out
+    assert "hot-swaps applied: 0" in out and "WARNING" not in out
+    tserve.main(["--device", "cpu", "--batch", "2", "--steps", "3",
+                 "--prompt-len", "8", "--restore", str(tmp_path / "other")])
+    out = capsys.readouterr().out
+    assert "WARNING" in out and "'stablelm-smoke'" in out
+    assert "trial 1:" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main([])
