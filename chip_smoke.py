@@ -97,14 +97,24 @@ failure:
    tokens, capacity 4: blockwise admits x 24 times, 108 of 256 block
    pairs each (the window masks), no kernel, every logit finite; a
    profiler window over one admit;
-6w. hot-swap: qwen3-4b at full width cut to 4 layers; a baseline
-   checkpoint, a ``CheckpointWatcher`` on the continuous engine under a
-   ``Scheduler`` (``poll_every`` 8), a perturbed master saved at tick 10:
-   exactly one swap, at tick 16; in-flight tokens unchanged, every
-   request drained to its budget; post-swap tokens bit for bit those of a
-   fresh engine restored from the same checkpoint; flash launches admits
-   x 4; a checkpoint of another arch journalled once and skipped;
-   checkpoint bytes, restore, flip and polling-tick times printed;
+8a. LM training (run before 6w, which uses its session): qwen3-4b at
+   full width cut to 4 layers (792,681,984 float32 params) through
+   ``RunSpec`` / ``ElasticSession``, AdaHessian, DEAHES-O, k=2, τ=1,
+   128-token windows, batch 2, fused comm, an eval every round; counts
+   zeroed just before 4 rounds: K1 and K2 once a round, flash attention 4
+   times an eval (``no_grad``), nothing else; round ms, dispatch share,
+   peak GB, losses; a profiler window over one more round;
+6w. hot-swap: the engine (qwen3-4b at full width cut to 4 layers, bf16)
+   watches the directory the live 8a session saves into: a baseline
+   master, a ``CheckpointWatcher`` on the continuous engine under a
+   ``Scheduler`` (``poll_every`` 8), and at tick 10 the session trains
+   one more round and saves: exactly one swap, at tick 16, the engine's
+   params the session's master cast leaf for leaf; in-flight tokens
+   unchanged, every request drained to its budget; post-swap tokens bit
+   for bit those of a fresh engine restored from the same checkpoint;
+   flash launches admits x 4 plus the round's eval; a checkpoint of
+   another arch journalled once and skipped; checkpoint bytes, restore,
+   flip and polling-tick times printed;
 7. serving devices: 2 layers at full width in float32 on the card and on
    the CPU from the same params, prefill and 4 decode steps agree;
 7b. blockwise devices: ``blockwise_attention`` at danube's admit shape
@@ -114,13 +124,28 @@ failure:
    ``scaled_dot_product_attention`` with the same mask (timed only); then
    phase 7 for stablelm-3b and h2o-danube-1.8b at 1024 tokens (the
    blockwise branch);
-8. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
+8b. ``repro_torch.examples.train_lm_elastic --preset 100m`` (the
+   reference's preset for real hardware: 12 layers, head_dim 64, 512
+   tokens, batch 16) at k=4, τ=2, 3 rounds, sequential comm, an eval
+   every round; counts zeroed just before: K1 once a τ-step, K3 once a
+   worker a round, flash attention 12 times an eval, nothing else;
+8c. LM training card vs CPU at SMOKE (float32): stablelm-3b (fused) and
+   qwen3-4b with head_dim 64 at 128 tokens (sequential; its eval takes
+   the flash kernel), 3 rounds, the same params and probes; master and
+   workers per leaf (norm-wise 1e-3, rtol 1e-4 with atol 2% of the
+   leaf's scale), losses at rtol 1e-4;
+8d. gradients: ``flash_attention_bshd`` on CUDA tensors raises under
+   autograd and ``torch.func.grad``, launching nothing; a flash-shaped
+   ``DecoderLM.loss(...).backward()`` at SMOKE gives every leaf the CPU's
+   gradient within 1e-3 of its scale, with no flash launch under grad;
+9. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
    ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
    ``{"hierarchy": ...}`` line, a ``{"sharded": ...}`` line, a
    ``{"dense_family": ...}`` line, a ``{"hotswap": ...}`` line, a
+   ``{"lm_training": ...}`` line (8a-8d), a
    ``{"kernels": [...]}`` line (the batched kernels' entries with their
    launches on the hierarchy run and on each rank of the sharded runs
-   too, flash attention's with its launches in phase 6w), the
+   too, every entry with its launches in phase 6w and in 8a-8c), the
    ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -129,8 +154,10 @@ port's sources are not beside this script.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -1792,9 +1819,12 @@ def profile_window(torch, name, fn, reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # the raw kineto events: ``prof.events()`` builds the whole CPU op
+    # tree in Python first, tens of seconds for a blockwise admit's
+    # ~70,000 kernels and their host ops
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
     busy, end, by_name = 0.0, float("-inf"), {}
     for start, stop, kname in spans:
         busy += max(0.0, stop - max(start, end))
@@ -2135,31 +2165,365 @@ def blockwise_devices(torch):
 
 
 HOTSWAP_LAYERS = 4  # qwen3-4b cut to 4 of 36 layers: 792,681,984 params
+# phase 8a: rounds measured (counts zeroed before), then a profiled round
+# after a warm-up one, then 6w's round: the session's RunSpec.rounds
+LM_ROUNDS, LM_PROFILED, LM_SWAP_ROUNDS = 4, 2, 1
 
 
-def hotswap_path(torch):
-    """Phase 6w: checkpoint hot-swap into the continuous engine, qwen3-4b
-    at full width cut to 4 layers (bf16; a checkpoint stores bf16 as
-    float32, 3.2 GB here, 16 GB at full depth). A baseline checkpoint with
-    ``{"arch", "rounds"}`` metadata, then a ``CheckpointWatcher`` on the
-    engine, then a ``Scheduler`` (capacity 4, ``poll_every`` 8) over 6
-    requests (prompts 256 and 512, 32 new tokens); after tick 10 a
-    perturbed master is saved into the watched directory (standing in for
-    a training session's next save). Checks: one swap, applied at tick 16
-    (the first poll after the save; every poll on a multiple of 8); the
-    requests in flight keep their pre-swap tokens and drain to 32; after
-    the run a prompt decoded by the swapped engine and by a fresh engine
-    restored from the same checkpoint gives the same tokens, bit for bit
-    (and the params are bit-identical); flash launches admits x 4; a
-    checkpoint of another arch is journalled once and skipped."""
+def _launches(torch):
+    from repro_torch.kernels import kernels
+
+    torch.cuda.synchronize()
+    return {n: x.launches for n, x in kernels().items()}
+
+
+def lm_training_path(torch):
+    """Phase 8a: elastic LM training at full width through ``RunSpec`` /
+    ``ElasticSession``: qwen3-4b at full width cut to 4 of 36 layers
+    (792,681,984 params, the model 6w serves), float32 params and
+    activations as ``train_lm_elastic`` sets them, drawn on the card from
+    a seed; AdaHessian, DEAHES-O (dynamic weighting), k=2, τ=1, 128-token
+    windows, batch 2, fused comm, a held-out eval every round. Counts
+    zeroed just before 4 rounds and read just after: the batched
+    AdaHessian step (K1) and the batched exchange (K2) once a round, the
+    flash kernel (K5) 4 times an eval (one per layer; the eval runs under
+    ``no_grad``, the local phase's ``vmap(jvp(grad))`` never reaches it),
+    nothing else. Then one warm-up round and one ``torch.profiler`` round
+    (device busy share, kernels a round). Returns the live session, which
+    6w keeps training and saving."""
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession, RunSpec
+    from repro_torch.configs.base import (ElasticConfig, OptimizerConfig,
+                                          get_config)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import init_tree, param_count
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-4b").replace(num_layers=HOTSWAP_LAYERS,
+                                         dtype="float32",
+                                         param_dtype="float32")
+    spec_tree = build_model(cfg).spec
+    n_params = param_count(spec_tree)
+    if n_params != 792_681_984:
+        raise AssertionError(f"qwen3-4b at 4 layers has {n_params:,} params")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = RunSpec(
+        model_cfg=cfg, optimizer=OptimizerConfig(name="adahessian", lr=0.002),
+        elastic=ElasticConfig(num_workers=2, tau=1, comm_mode="fused",
+                              dynamic=True),
+        rounds=LM_ROUNDS + LM_PROFILED + LM_SWAP_ROUNDS, seed=0,
+        batch_size=2, seq_len=128, eval_every=1, device="cuda")
+    params = init_tree(torch.Generator(dev).manual_seed(5), spec_tree, dev)
+    sess = ElasticSession(spec, params=params)
+    del params
+    setup_s = time.perf_counter() - t0
+    reset_launch_counts()
+    records = sess.run(LM_ROUNDS)
+    launches = _launches(torch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in launches}
+    want.update(adahessian_update_batched=LM_ROUNDS,
+                elastic_update_batched=LM_ROUNDS,
+                flash_attention_fwd=LM_ROUNDS * HOTSWAP_LAYERS)
+    if launches != want:
+        raise AssertionError(f"LM training launches {launches}, expected "
+                             f"{want}")
+    losses = [r.loss for r in records] + [r.eval_loss for r in records]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"LM training: a non-finite loss {losses}")
+    if not any(np.asarray(r.h2).any() for r in records):
+        raise AssertionError("LM training: no worker reached the master")
+    steady = records[1:]
+    stats = {
+        "arch": cfg.name, "layers": HOTSWAP_LAYERS, "params": n_params,
+        "workers": 2, "tau": 1, "seq_len": 128, "batch": 2,
+        "comm": "fused", "rounds": LM_ROUNDS, "setup_s": setup_s,
+        "round_ms": statistics.median(r.round_ms for r in steady),
+        "first_round_ms": records[0].round_ms,
+        "dispatch_share": statistics.median(r.dispatch_ms / r.round_ms
+                                            for r in steady),
+        "peak_gb": peak_gb, "launches": launches,
+        "worker_loss": [r.loss for r in records],
+        "master_eval_loss": [r.eval_loss for r in records],
+        "h2": [np.asarray(r.h2).tolist() for r in records]}
+    stats["profiled_round"] = profile_window(
+        torch, "LM round (qwen3-4b width, 4 layers, k=2)",
+        lambda: sess.run(1), 1)
+    log(f"  {n_params:,} params, float32, k=2, tau=1, fused; setup "
+        f"{setup_s:.1f} s; round ms {stats['round_ms']:.1f} (median of "
+        f"rounds 1-{LM_ROUNDS - 1}; round 0 {records[0].round_ms:.1f}), "
+        f"dispatch share {stats['dispatch_share']:.3f}; peak "
+        f"{peak_gb:.2f} GB; launches {launches}; worker loss "
+        f"{records[-1].loss:.4f}, master eval loss "
+        f"{records[-1].eval_loss:.4f}")
+    return sess, stats
+
+
+def train_lm_elastic_path(torch):
+    """Phase 8b: ``repro_torch.examples.train_lm_elastic --preset 100m``
+    (d_model 768, 12 layers, 12 heads of 64, 512-token windows, batch 16:
+    the reference's preset for real hardware) at k=4, τ=2 for 3 rounds,
+    sequential comm (the example's default), a held-out eval every round,
+    one worker per vmapped local-phase call (``--worker-chunk 1``: one
+    worker's ``vmap(jvp(grad))`` at 16 x 512 tokens keeps most of the
+    card's 80 GB alive, so two at once do not fit).
+    Counts zeroed just before and read just after: K1 once a τ-step, the
+    one-worker exchange (K3) once a worker a round, K5 12 times an eval
+    (head_dim 64 at 512 tokens is the flash kernel's shape), nothing
+    else."""
+    from repro_torch.examples import train_lm_elastic
+    from repro_torch.kernels import reset_launch_counts
+
+    rounds, k, tau, layers, chunk = 3, 4, 2, 12, 1
+    # the earlier phases' engines sit in reference cycles (their patched
+    # hooks close over them) until a collection; 8b needs the whole card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        sess, records = train_lm_elastic.main([
+            "--preset", "100m", "--workers", str(k), "--tau", str(tau),
+            "--rounds", str(rounds), "--eval-every", "1",
+            "--worker-chunk", str(chunk)])
+    launches = _launches(torch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    want = {n: 0 for n in launches}
+    want.update(adahessian_update_batched=rounds * tau,
+                elastic_update=rounds * k,
+                flash_attention_fwd=rounds * layers)
+    if launches != want:
+        raise AssertionError(f"train_lm_elastic launches {launches}, "
+                             f"expected {want}")
+    losses = [r.loss for r in records] + [r.eval_loss for r in records]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_lm_elastic: a non-finite loss {losses}")
+    stats = {"preset": "100m", "params": sess.layout.n, "workers": k,
+             "tau": tau, "rounds": rounds, "comm": sess.ecfg.comm_mode,
+             "worker_chunk": chunk, "held_before_gb": held_gb,
+             "round_ms": statistics.median(r.round_ms for r in records[1:]),
+             "first_round_ms": records[0].round_ms,
+             "dispatch_share": statistics.median(
+                 r.dispatch_ms / r.round_ms for r in records[1:]),
+             "peak_gb": peak_gb, "launches": launches,
+             "worker_loss": [r.loss for r in records],
+             "master_eval_loss": [r.eval_loss for r in records]}
+    log(f"  {sess.layout.n:,} params; round ms {stats['round_ms']:.1f} "
+        f"(median of rounds 1-{rounds - 1}; round 0 "
+        f"{records[0].round_ms:.1f}); peak {peak_gb:.2f} GB ({held_gb:.2f} "
+        f"GB held before it); launches {launches}")
+    del sess
+    torch.cuda.empty_cache()
+    return stats
+
+
+def lm_device_parity(torch):
+    """Phase 8c: LM training on the card and on the CPU (plain versions)
+    from the same params and probes, 3 rounds, AdaHessian, k=2, τ=2:
+    stablelm-3b SMOKE with fused comm, qwen3-4b SMOKE with head_dim 64 at
+    128 tokens with sequential comm (its eval is the flash kernel's shape:
+    K5 on the card, the plain version on the CPU), both in float32 (the
+    CPU tests' parity configs). Master and workers agree per leaf
+    (``_leaf_parity``: norm-wise within 1e-3, elementwise within rtol 1e-4
+    plus 2% of the leaf's scale; the ROADMAP's rule), round losses and the
+    held-out eval loss at rtol 1e-4."""
+    import numpy as np
+
+    from repro_torch.api.session import ElasticSession, RunSpec
+    from repro_torch.configs.base import (ElasticConfig, OptimizerConfig,
+                                          get_config)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import init_tree
+
+    out = {}
+    cases = (("stablelm-3b", {}, "fused", 16),
+             ("qwen3-4b", {"head_dim": 64}, "sequential", 128))
+    for arch, extra, comm, seq in cases:
+        cfg = get_config(arch, smoke=True).replace(
+            dtype="float32", param_dtype="float32", **extra)
+        spec_tree = build_model(cfg).spec
+        params = init_tree(torch.Generator().manual_seed(7), spec_tree)
+
+        def probes(device, n):
+            def fn(r, t, i):
+                z = np.random.default_rng([13, r, t, i]).integers(
+                    0, 2, (1, n)).astype(np.float32) * 2 - 1
+                return torch.from_numpy(z).to(device)
+            return fn
+
+        runs = {}
+        for device in ("cuda", "cpu"):
+            spec = RunSpec(
+                model_cfg=cfg, optimizer=OptimizerConfig(name="adahessian"),
+                elastic=ElasticConfig(num_workers=2, tau=2, comm_mode=comm),
+                rounds=3, batch_size=2, seq_len=seq, n_tokens=4000,
+                eval_every=1, device=device)
+            sess = ElasticSession(spec, params=params)
+            sess.trainer.probe_fn = probes(device, sess.layout.n)
+            reset_launch_counts()
+            records = sess.run()
+            runs[device] = (records, sess.state["master"].cpu().double(),
+                            sess.state["workers"].cpu().double(),
+                            _launches(torch), sess.layout)
+        (rc, mc, wc, lc, layout), (rp, mp, wp, _, _) = (runs["cuda"],
+                                                        runs["cpu"])
+        norm, worst = _leaf_parity(torch, layout, mc, mp,
+                                   f"{arch} master", 1e-3)
+        for i in range(wc.shape[0]):
+            n_i, w_i = _leaf_parity(torch, layout, wc[i], wp[i],
+                                    f"{arch} worker {i}", 1e-3)
+            norm, worst = max(norm, n_i), max(worst, w_i)
+        for a, b in zip(rc, rp):
+            for key in ("loss", "eval_loss"):
+                x, y = getattr(a, key), getattr(b, key)
+                if not math.isclose(x, y, rel_tol=1e-4):
+                    raise AssertionError(f"{arch} round {a.round} {key}: "
+                                         f"card {x} vs CPU {y}")
+        want = {n: 0 for n in lc}
+        want["adahessian_update_batched"] = 3 * 2
+        want["elastic_update_batched" if comm == "fused"
+             else "elastic_update"] = 3 if comm == "fused" else 3 * 2
+        if seq % 128 == 0 and cfg.hd in (64, 128):
+            want["flash_attention_fwd"] = 3 * cfg.num_layers
+        if lc != want:
+            raise AssertionError(f"{arch} card launches {lc}, expected "
+                                 f"{want}")
+        log(f"  {cfg.name} {comm}, {seq} tokens: card vs CPU master and "
+            f"workers worst leaf norm-wise {norm:.3g}, max abs {worst:.3g}; "
+            f"eval loss {rc[-1].eval_loss:.6f} / {rp[-1].eval_loss:.6f}; "
+            f"card launches {lc}")
+        out[cfg.name] = {"comm": comm, "seq_len": seq,
+                         "worst_norm_rel": norm, "max_abs": worst,
+                         "launches": lc}
+    return out
+
+
+def lm_gradients(torch):
+    """Phase 8d: the flash kernel refuses gradients, and LM training's
+    gradients on the card are the CPU's. (a) ``flash_attention_bshd`` on
+    CUDA tensors raises under autograd (an input that requires grad) and
+    under ``torch.func.grad``, launching nothing. (b) qwen3-4b SMOKE with
+    head_dim 64 at 128 tokens, float32 (a flash shape):
+    ``DecoderLM.loss(...).backward()`` on the card gives every leaf a
+    gradient, equal to the CPU's within 1e-3 of the leaf's gradient scale
+    (phase 7's float32 tolerance), with no K5 launch during forward or
+    backward; the same loss under ``no_grad`` launches K5 once a layer and
+    agrees."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fla
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import init_tree, tree_from_leaves, tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    q = torch.randn(1, 128, 4, 64, generator=gen, device=dev)
+    kv = torch.randn(1, 128, 2, 64, generator=gen, device=dev)
+    reset_launch_counts()
+    refused = []
+    for how, call in (
+            ("requires_grad", lambda: fla.flash_attention_bshd(
+                q.clone().requires_grad_(), kv, kv)),
+            ("torch.func.grad", lambda: torch.func.grad(
+                lambda x: fla.flash_attention_bshd(x, kv, kv).sum())(q))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(how)
+        else:
+            raise AssertionError(f"flash_attention_bshd ran under {how}")
+    if _launches(torch)["flash_attention_fwd"]:
+        raise AssertionError("a refused flash call launched the kernel")
+
+    cfg = get_config("qwen3-4b", smoke=True).replace(
+        head_dim=64, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    cpu = init_tree(torch.Generator().manual_seed(9), model.spec)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 129))
+    grads, losses = {}, {}
+    for device in ("cpu", "cuda"):
+        params = tree_from_leaves((p, t.detach().to(device).requires_grad_())
+                                  for p, t in tree_leaves(cpu))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+                 "targets": torch.as_tensor(toks[:, 1:], device=device)}
+        reset_launch_counts()
+        loss = model.loss(params, batch)[0]
+        loss.backward()
+        losses[device] = float(loss.detach())
+        if device == "cuda":
+            if _launches(torch)["flash_attention_fwd"]:
+                raise AssertionError("K5 launched under autograd")
+            with torch.no_grad():
+                nograd = float(model.loss(params, batch)[0])
+            if _launches(torch)["flash_attention_fwd"] != cfg.num_layers:
+                raise AssertionError("the no_grad loss did not run K5 once "
+                                     "a layer")
+            if not math.isclose(nograd, losses[device], rel_tol=1e-4):
+                raise AssertionError(f"no_grad loss {nograd} vs "
+                                     f"{losses[device]}")
+        grads[device] = {p: t.grad for p, t in tree_leaves(params)}
+    worst = 0.0
+    for path, want in grads["cpu"].items():
+        got = grads["cuda"][path]
+        if got is None or want is None:
+            raise AssertionError(f"leaf {path} got no gradient")
+        got = got.cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > 1e-3 * scale:
+            raise AssertionError(f"grad {path}: card vs CPU max abs {err:.3g}"
+                                 f" > 1e-3 x {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"  flash refused under {refused} with 0 launches; {cfg.name} "
+        f"hd 64, 128 tokens: {len(grads['cpu'])} leaves, every one a "
+        f"gradient, card vs CPU worst {worst:.3g} of the leaf's scale, "
+        f"loss {losses['cuda']:.6f} / {losses['cpu']:.6f}; 0 K5 launches "
+        f"under autograd, {cfg.num_layers} under no_grad")
+    return {"refused": refused, "leaves": len(grads["cpu"]),
+            "worst_grad_rel": worst, "loss_card": losses["cuda"],
+            "loss_cpu": losses["cpu"]}
+
+
+def hotswap_path(torch, sess):
+    """Phase 6w: checkpoint hot-swap from the live training session of
+    phase 8a into the continuous engine: qwen3-4b at full width cut to 4
+    layers, the engine in bf16 (a checkpoint stores the float32 master, 3.2
+    GB here, 16 GB at full depth). The session saves a baseline master,
+    then a ``CheckpointWatcher`` watches the directory from the engine,
+    under a ``Scheduler`` (capacity 4, ``poll_every`` 8) over 6 requests
+    (prompts 256 and 512, 32 new tokens); after tick 10 the session
+    trains one more round (K1, K2 once each, its eval K5 4 times) and
+    saves its next master into the watched directory. Checks: one swap,
+    applied at tick 16 (the first poll after the save; every poll on a
+    multiple of 8); the engine's params are the session's master cast to
+    the engine's dtypes, leaf for leaf; the requests in flight keep their
+    pre-swap tokens and drain to 32; after the run a prompt decoded by the
+    swapped engine and by a fresh engine restored from the same checkpoint
+    gives the same tokens, bit for bit; flash launches admits x 4 plus the
+    eval's 4; a checkpoint of another arch is journalled once and
+    skipped."""
     import dataclasses
 
     from repro_torch.checkpoint import checkpoint
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import kernels, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models.registry import build_model
-    from repro_torch.nn.param import (init_tree, param_count,
-                                      tree_from_leaves, tree_leaves)
+    from repro_torch.nn.param import init_tree, param_count, tree_leaves
     from repro_torch.serving import (CheckpointWatcher, ContinuousEngine,
                                      Scheduler)
     from repro_torch.serving.traffic import TrafficConfig, synthetic_traffic
@@ -2168,14 +2532,11 @@ def hotswap_path(torch):
     cfg = get_config("qwen3-4b").replace(num_layers=HOTSWAP_LAYERS)
     model = build_model(cfg)
     n_params = param_count(model.spec)
-    if n_params != 792_681_984:
-        raise AssertionError(f"qwen3-4b at 4 layers has {n_params:,} params")
+    if n_params != 792_681_984 or sess.model_cfg.name != cfg.name:
+        raise AssertionError(f"qwen3-4b at 4 layers has {n_params:,} params"
+                             f", the session trains {sess.model_cfg.name}")
     gen = torch.Generator(dev).manual_seed(3)
     params = init_tree(gen, model.spec, dev)
-    perturbed = tree_from_leaves(
-        (p, (t.float() + 0.02 * torch.randn(t.shape, generator=gen,
-                                            device=dev)).to(t.dtype))
-        for p, t in tree_leaves(params))
     stats = {"layers": HOTSWAP_LAYERS, "params": n_params}
     timings = {"restore_s": [], "flip_s": []}
     restore = checkpoint.restore
@@ -2191,7 +2552,7 @@ def hotswap_path(torch):
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "master")
         t0 = time.perf_counter()
-        checkpoint.save(ck, params, metadata={"arch": cfg.name, "rounds": 0})
+        sess.save(ck)
         stats["save_s"] = time.perf_counter() - t0
         stats["checkpoint_bytes"] = sum(
             os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
@@ -2229,11 +2590,16 @@ def hotswap_path(torch):
             out = tick()
             tick_s.append((engine.ticks, time.perf_counter() - t0,
                            bool(polls) and polls[-1] == engine.ticks))
-            if engine.ticks == 10 and "perturbed_save_s" not in stats:
+            if engine.ticks == 10 and "next_save_s" not in stats:
                 t1 = time.perf_counter()
-                checkpoint.save(ck, perturbed,
-                                metadata={"arch": cfg.name, "rounds": 1})
-                stats["perturbed_save_s"] = time.perf_counter() - t1
+                rec = sess.run(1)[0]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                sess.save(ck)
+                stats.update(train_round_s=t2 - t1,
+                             next_save_s=time.perf_counter() - t2,
+                             session_round=rec.round,
+                             session_eval_loss=rec.eval_loss)
             return out
 
         sched.tick = timed_tick
@@ -2250,16 +2616,17 @@ def hotswap_path(torch):
         finally:
             checkpoint.restore = restore
             watcher.poll = poll
-        launches = {n: x.launches for n, x in kernels().items()}
+        launches = _launches(torch)
         admits = len(lm.times["prefill"])
         want = {n: 0 for n in launches}
-        want["flash_attention_fwd"] = admits * HOTSWAP_LAYERS
+        want.update(flash_attention_fwd=(admits + 1) * HOTSWAP_LAYERS,
+                    adahessian_update_batched=1, elastic_update_batched=1)
         if launches != want:
             raise AssertionError(f"hot-swap launches {launches}, "
                                  f"expected {want}")
         applied = [e for e in watcher.log if e.applied]
         if (len(watcher.log) != 1 or len(applied) != 1 or engine.swaps != 1
-                or applied[0].tick != 16 or applied[0].rounds != 1):
+                or applied[0].tick != 16 or applied[0].rounds != sess.round):
             raise AssertionError(f"swap journal {watcher.log}, "
                                  f"{engine.swaps} swaps")
         if any(t % 8 for t in polls) or polls[:2] != [8, 16]:
@@ -2277,9 +2644,10 @@ def hotswap_path(torch):
                 raise AssertionError(f"request {rid}'s pre-swap tokens "
                                      "changed")
         for (path, a), (_, b) in zip(tree_leaves(engine.params),
-                                     tree_leaves(perturbed)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"swapped leaf {path} != the saved one")
+                                     tree_leaves(sess.master_tree())):
+            if not torch.equal(a, b.to(a.dtype)):
+                raise AssertionError(f"swapped leaf {path} != the session's "
+                                     "master")
 
         fresh_params, _ = checkpoint.restore(ck, like=params)
         fresh = ContinuousEngine(model, fresh_params, **shape)
@@ -2303,11 +2671,13 @@ def hotswap_path(torch):
         if "arch mismatch" not in watcher.log[-1].note or engine.swaps != 1:
             raise AssertionError(f"arch mismatch journal {watcher.log[-1]}")
     swap_tick = [s for t, s, p in tick_s if t == applied[0].tick and p]
-    plain_ticks = [s for t, s, p in tick_s if not p]
+    plain_ticks = [s for t, s, p in tick_s if not p and t != 10]
     stats.update({
         "swaps_applied": watcher.swaps_applied, "swap_tick": 16,
+        "swapped_rounds": applied[0].rounds,
         "polls": polls, "admits": admits,
         "flash_launches": launches["flash_attention_fwd"],
+        "launches": launches,
         "in_flight_at_swap": sorted(pre_swap),
         "standby_restore_ms": 1e3 * timings["restore_s"][0],
         "flip_ms": 1e3 * timings["flip_s"][0],
@@ -2316,16 +2686,19 @@ def hotswap_path(torch):
         "post_swap_tokens_match_fresh": True,
         "arch_mismatch_journalled": watcher.log[-1].note})
     log(f"  {n_params:,} params ({HOTSWAP_LAYERS} layers); checkpoint "
-        f"{stats['checkpoint_bytes']:,} B, save {stats['save_s']:.2f} s "
-        f"(perturbed save {stats['perturbed_save_s']:.2f} s); 1 swap at "
-        f"tick 16 (polls {polls}), requests {sorted(pre_swap)} in flight "
-        f"kept their tokens; standby restore {stats['standby_restore_ms']:.1f}"
-        f" ms, flip {stats['flip_ms']:.3f} ms; the polling tick "
-        f"{stats['polling_tick_ms']:.1f} ms beside a median tick "
-        f"{stats['median_tick_ms']:.2f} ms; flash launches "
-        f"{stats['flash_launches']} = {admits} admits x {HOTSWAP_LAYERS}; "
-        f"post-swap tokens = fresh engine's; arch mismatch journalled once")
-    del params, perturbed, fresh_params, engine, fresh, lm
+        f"{stats['checkpoint_bytes']:,} B, session save {stats['save_s']:.2f}"
+        f" s; at tick 10 the session trained round {stats['session_round']}"
+        f" ({stats['train_round_s']:.2f} s) and saved "
+        f"({stats['next_save_s']:.2f} s); 1 swap at tick 16 (polls {polls}),"
+        f" master of round {applied[0].rounds}, requests {sorted(pre_swap)} "
+        f"in flight kept their tokens; standby restore "
+        f"{stats['standby_restore_ms']:.1f} ms, flip {stats['flip_ms']:.3f} "
+        f"ms; the polling tick {stats['polling_tick_ms']:.1f} ms beside a "
+        f"median tick {stats['median_tick_ms']:.2f} ms; launches {launches}"
+        f" ({admits} admits x {HOTSWAP_LAYERS} + the eval's "
+        f"{HOTSWAP_LAYERS} flash); post-swap tokens = fresh engine's; arch "
+        "mismatch journalled once")
+    del params, fresh_params, engine, fresh, lm
     torch.cuda.empty_cache()
     return launches, stats
 
@@ -2432,14 +2805,21 @@ def main() -> int:
         t0 = time.perf_counter()
         family[arch] = dense_family_path(torch, arch)
         family[arch]["phase_s"] = time.perf_counter() - t0
-    log(f"[6w] hot-swap: qwen3-4b width, {HOTSWAP_LAYERS} layers, "
-        "CheckpointWatcher on the continuous engine")
+    lm = {}
+    log(f"[8a] LM training at full width: qwen3-4b width, {HOTSWAP_LAYERS} "
+        "layers, float32, ElasticSession on the card")
     t0 = time.perf_counter()
-    swap_counts, hotswap = hotswap_path(torch)
+    sess, lm["8a"] = lm_training_path(torch)
+    lm["8a"]["phase_s"] = time.perf_counter() - t0
+    log(f"[6w] hot-swap: qwen3-4b width, {HOTSWAP_LAYERS} layers, "
+        "CheckpointWatcher on the continuous engine, watching the live "
+        "session of 8a")
+    t0 = time.perf_counter()
+    swap_counts, hotswap = hotswap_path(torch, sess)
     hotswap["phase_s"] = time.perf_counter() - t0
-    for entry in table:
-        if entry["name"] == "flash_attention_fwd":
-            entry["hotswap_launches"] = swap_counts["flash_attention_fwd"]
+    del sess  # 6w's patched scheduler hooks hold it in a reference cycle
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
     serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
@@ -2452,7 +2832,29 @@ def main() -> int:
             torch, arch, 1024)
     family["phase_7b_s"] = time.perf_counter() - t0
 
-    log(f"[8] done in {time.perf_counter() - t_start:.1f} s")
+    log("[8b] train_lm_elastic --preset 100m, k=4, tau=2, 3 rounds")
+    t0 = time.perf_counter()
+    lm["8b"] = train_lm_elastic_path(torch)
+    lm["8b"]["phase_s"] = time.perf_counter() - t0
+    log("[8c] LM training card vs CPU at SMOKE, carried params and probes")
+    t0 = time.perf_counter()
+    lm["8c"] = lm_device_parity(torch)
+    lm["8c"]["phase_s"] = time.perf_counter() - t0
+    log("[8d] gradients: flash refuses them; DecoderLM.loss backward card "
+        "vs CPU")
+    t0 = time.perf_counter()
+    lm["8d"] = lm_gradients(torch)
+    lm["8d"]["phase_s"] = time.perf_counter() - t0
+    for entry in table:
+        name = entry["name"]
+        entry["hotswap_launches"] = swap_counts[name]
+        entry["lm_training_launches"] = {
+            "8a": lm["8a"]["launches"][name], "8b": lm["8b"]["launches"][name],
+            **{f"8c {arch}": run["launches"][name]
+               for arch, run in lm["8c"].items()
+               if isinstance(run, dict)}}
+
+    log(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train_cli": cli}))
     print(json.dumps({"serving": serve_stats}))
     print(json.dumps({"membership": membership}))
@@ -2461,6 +2863,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"dense_family": family}))
     print(json.dumps({"hotswap": hotswap}))
+    print(json.dumps({"lm_training": lm}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

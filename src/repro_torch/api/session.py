@@ -1,7 +1,8 @@
 """`RunSpec` → `ElasticSession`: the run loop of the port's elastic trainer.
 
-Mirrors ``repro.api.session`` for the paper's CNN under an open-loop
-failure scenario. ``RunSpec`` replaces the reference's ``use_pallas`` with
+Mirrors ``repro.api.session`` for the paper's CNN and the dense LMs
+(qwen3-4b, stablelm-3b, h2o-danube-1.8b) under an open-loop failure
+scenario. ``RunSpec`` replaces the reference's ``use_pallas`` with
 ``device`` (default ``"cuda"``): on the card every kernel of the round runs
 as a hand-written CUDA kernel, on ``device="cpu"`` as its plain PyTorch
 version. A ``"cuda"`` run on a machine without a card raises.
@@ -58,7 +59,17 @@ rank (``round_ms`` is the slowest rank's). ``save`` writes from rank 0
 only, in the same format; ``restore`` re-seats on every rank, from a
 checkpoint of any placement and world size.
 
-Not ported yet, refused by name: LM training.
+LM training (a ``dense`` ``arch`` or ``model_cfg``): the workers read
+``SyntheticTokens`` through the overlap ``TokenWorkerBatcher``
+(``seq_len``, ``n_tokens``), the master is evaluated on a held-out batch
+drawn from the same stream with ``seed + 31``, and ``evaluate`` returns
+``(loss, None)`` (an LM has no accuracy). The workers and the master are
+float32 flat buffers whatever the config's ``param_dtype``; the model
+computes in its activation dtype. Under the trainer's ``vmap(jvp(grad))``
+attention takes the reference's training path (``nn/layers.py``); the
+held-out eval runs under ``no_grad``, through the flash kernel at its
+shapes. The other LM families raise by name
+(``repro_torch.models.registry``).
 """
 from __future__ import annotations
 
@@ -80,12 +91,12 @@ from repro_torch.core.coordinator import (ElasticTrainer, NoiseFn, ProbeFn,
                                           RoundInputs)
 from repro_torch.core.scenarios import (ScenarioSchedule, make_membership,
                                         make_scenario)
-from repro_torch.data.pipeline import WorkerBatcher
-from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.data.pipeline import TokenWorkerBatcher, WorkerBatcher
+from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (max_over_ranks, padded_capacity,
                                      world_and_rank)
-from repro_torch.models.cnn import PaperCNN
+from repro_torch.models.registry import build_model
 from repro_torch.nn.param import tree_from_leaves
 from repro_torch.train.steps import init_train_state, make_train_step
 
@@ -110,24 +121,32 @@ class RunSpec:
     schedule: Optional[ScenarioSchedule] = None
     plain: bool = False
     batch_size: int = 32
+    seq_len: int = 128
     n_data: int = 8000
     n_test: int = 1000
+    n_tokens: int = 100_000
     data_seed: int = 0
     eval_every: int = 0  # 0 = never; >0 = every e rounds + the final round
     save_path: Optional[str] = None
     device: str = "cuda"
     controller: Optional[str] = None  # None = open loop; "rules"
     detector_blind: bool = False  # echo mask-zeroed schedule into records
+    # workers per vmapped local-phase call (None: all at once; see
+    # ElasticTrainer.worker_chunk): bounds an LM's activation memory
+    worker_chunk: Optional[int] = None
 
     def __post_init__(self):
-        for name in ("rounds", "rounds_per_call", "batch_size", "n_data",
-                     "n_test"):
+        for name in ("rounds", "rounds_per_call", "batch_size", "seq_len",
+                     "n_data", "n_test", "n_tokens"):
             v = getattr(self, name)
             if v < 1:
                 raise ValueError(f"RunSpec.{name} must be >= 1, got {v}")
         if self.eval_every < 0:
             raise ValueError(
                 f"RunSpec.eval_every must be >= 0, got {self.eval_every}")
+        if self.worker_chunk is not None and self.worker_chunk < 1:
+            raise ValueError(f"RunSpec.worker_chunk must be None or >= 1, "
+                             f"got {self.worker_chunk}")
         if self.schedule is not None:
             if self.plain:
                 raise ValueError(
@@ -212,13 +231,8 @@ class ElasticSession:
         self.spec = spec
         self.device = resolve_device(spec.device)
         cfg = spec.model_cfg or get_config(spec.arch, smoke=spec.smoke)
-        if cfg.family != "cnn":
-            raise NotImplementedError(
-                f"LM training (model family {cfg.family!r}) is not ported "
-                "to PyTorch yet: the card's flash-attention kernel has no "
-                "backward")
         self.model_cfg = cfg
-        self.model = PaperCNN(cfg)
+        self.model = build_model(cfg)
         ecfg = spec.elastic
         if spec.plain:
             # the k=1 limit: one worker, no exchange, no failures
@@ -243,16 +257,30 @@ class ElasticSession:
         self.trainer = ElasticTrainer(self.model, spec.optimizer, ecfg,
                                       device=self.device, probe_fn=probe_fn,
                                       noise_fn=noise_fn, seed=spec.seed,
-                                      group=group)
+                                      group=group,
+                                      worker_chunk=spec.worker_chunk)
         self._rows = slice(self.trainer._lo, self.trainer._hi)
         self.layout = self.trainer.layout
         # -- data -----------------------------------------------------------
-        ds = SyntheticImages(n=spec.n_data, n_test=spec.n_test,
-                             seed=spec.data_seed)
-        self.batcher = WorkerBatcher(ds.images, ds.labels, ecfg,
-                                     batch_size=spec.batch_size,
-                                     seed=spec.seed)
-        self._test = self._to_device(ds.test_batch())
+        if cfg.family == "cnn":
+            ds = SyntheticImages(n=spec.n_data, n_test=spec.n_test,
+                                 seed=spec.data_seed)
+            self.batcher = WorkerBatcher(ds.images, ds.labels, ecfg,
+                                         batch_size=spec.batch_size,
+                                         seed=spec.seed)
+            test = ds.test_batch()
+        else:
+            toks = SyntheticTokens(vocab=cfg.vocab_size,
+                                   n_tokens=spec.n_tokens,
+                                   seed=spec.data_seed)
+            self.batcher = TokenWorkerBatcher(toks.tokens, ecfg,
+                                              batch_size=spec.batch_size,
+                                              seq_len=spec.seq_len,
+                                              seed=spec.seed)
+            # held-out eval batch from the same stream, disjoint rng
+            test = toks.batch(np.random.default_rng(spec.seed + 31),
+                              spec.batch_size, spec.seq_len)
+        self._test = self._to_device(test)
         self.round = 0  # rounds completed so far
         self._active = np.arange(self.capacity) < ecfg.num_workers
         self._observers: List[SessionObserver] = []
@@ -298,9 +326,12 @@ class ElasticSession:
             self._apply_membership(self.schedule.active[0])
 
     def _to_device(self, batch):
-        return {"images": torch.as_tensor(batch["images"]).to(self.device),
-                "labels": torch.as_tensor(batch["labels"]).to(
-                    self.device, torch.int64)}
+        """Host numpy batch → tensors on the run's device; integer
+        entries (labels, tokens, targets) as int64."""
+        return {key: torch.as_tensor(val).to(
+                    self.device, torch.int64
+                    if np.issubdtype(val.dtype, np.integer) else None)
+                for key, val in batch.items()}
 
     # -- eval ---------------------------------------------------------------
     @property
@@ -320,10 +351,12 @@ class ElasticSession:
 
     @torch.no_grad()
     def evaluate(self):
-        """(held-out loss, accuracy) of the master params."""
+        """(held-out loss, accuracy-or-None) of the master params: an LM
+        has no accuracy."""
         params = self.layout.views(self.master_params)
+        acc = getattr(self.model, "accuracy", None)
         return (float(self.model.loss(params, self._test)[0]),
-                float(self.model.accuracy(params, self._test)))
+                None if acc is None else float(acc(params, self._test)))
 
     def _is_eval_round(self, r: int) -> bool:
         e = self.spec.eval_every

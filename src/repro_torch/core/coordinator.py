@@ -5,7 +5,9 @@ One round of ``ElasticTrainer.round_step``:
   1. **restarts** — crash-restart rejoins re-seat their params from the
      master.
   2. **local phase** — every worker runs τ local optimizer steps on its own
-     (overlap-sharded) data. With AdaHessian each τ-step is *fused*: one
+     (overlap-sharded) data, ``model.loss(params, batch)`` for any model
+     family (the CNN's images, an LM's tokens). With AdaHessian each τ-step
+     is *fused*: one
      ``torch.func.vmap`` over the workers of ``jvp(grad(loss))`` gives the
      gradients and the Hutchinson HVPs together, and one batched AdaHessian
      step updates all k workers (a CUDA kernel on the card). SGD/Momentum
@@ -108,8 +110,10 @@ NoiseFn = Callable[[int, int, int], torch.Tensor]
 class RoundInputs:
     """Everything one round consumes.
 
-    ``batches`` holds (τ, k, B, ...) tensors on the trainer's device
-    (``images`` float32 NHWC, ``labels`` int64). ``round`` keys the probe
+    ``batches`` holds (τ, k, B, ...) tensors on the trainer's device: the
+    model's batch dict (``images`` float32 NHWC and ``labels`` int64 for
+    the CNN, ``tokens`` and ``targets`` int64 for an LM); the local phase
+    maps over every entry. ``round`` keys the probe
     seam. The masks are host numpy (k,) rows of the schedule;
     ``straggle``/``restart`` stay ``None`` when the scenario never fires
     them, and so do the adversarial channels: ``corrupt`` (k,) bool
@@ -195,6 +199,11 @@ class ElasticTrainer:
     # None takes the default group, or world size 1 when none is
     # initialised.
     group: Any = None
+    # Workers mapped per ``vmap`` call of the local phase (None: all of
+    # this rank's at once). Fewer bound the activations that
+    # ``vmap(jvp(grad))`` keeps alive, which an LM at a long batch needs,
+    # at the cost of more, smaller kernel launches.
+    worker_chunk: Optional[int] = None
 
     def __post_init__(self):
         self._sharded = self.ecfg.placement == "sharded"
@@ -347,9 +356,8 @@ class ElasticTrainer:
                 g.add_(c * self.noise_fn(r, t, self._lo + int(i)))
 
     # -- local phase ------------------------------------------------------------
-    def _loss(self, params, images, labels):
-        return self.model.loss(params, {"images": images,
-                                        "labels": labels})[0]
+    def _loss(self, params, batch):
+        return self.model.loss(params, batch)[0]
 
     def _fused_local_step(self, state, batch, r: int, t: int, corrupt=None):
         """One AdaHessian τ-step for all k workers: gradients and Hutchinson
@@ -357,32 +365,40 @@ class ElasticTrainer:
         averaged per leaf, both packed into (k, n) with one ``torch.cat``
         each (the corrupt slots' gradients poisoned), then one batched
         update in place, over this rank's rows (probes keyed by global
-        slot)."""
+        slot). Each (k, n)-sized temporary is dropped as soon as the next
+        is built, so at the update the step holds two (the packed gradient
+        and diagonal) beside the state: an LM's n makes each one GBs."""
         k, lay = self._hi - self._lo, self.layout
         z = torch.stack([self.probe_fn(r, t, i)
                          for i in range(self._lo, self._hi)])
         probes = [lay.views(z[:, s]) for s in range(z.shape[1])]
         grads, diag, loss = hessian_diag_with_grad(
-            self._loss, lay.views(state["workers"]), probes,
-            batch["images"], batch["labels"])
+            self._loss, lay.views(state["workers"]), probes, batch,
+            chunk_size=self.worker_chunk)
+        del z, probes
         block = self.opt_cfg.spatial_block
         hs = {name: spatial_average(d, block, batch_dims=1)
               for name, d in diag.items()}
+        del diag
         g = lay.pack(grads, (k,))
+        del grads
         if corrupt is not None:
             self.corrupt_grads(g, corrupt, r, t)
-        self.opt.step(state["workers"], g, state["opt"], lay.pack(hs, (k,)))
+        h = lay.pack(hs, (k,))
+        del hs
+        self.opt.step(state["workers"], g, state["opt"], h)
         return loss
 
     def _plain_local_step(self, state, batch, r: int, t: int, corrupt=None):
         k, lay = self._hi - self._lo, self.layout
 
-        def loss_and_value(p, images, labels):
-            value = self._loss(p, images, labels)
+        def loss_and_value(p, b):
+            value = self._loss(p, b)
             return value, value
 
-        grads, loss = vmap(grad(loss_and_value, has_aux=True))(
-            lay.views(state["workers"]), batch["images"], batch["labels"])
+        grads, loss = vmap(grad(loss_and_value, has_aux=True),
+                           chunk_size=self.worker_chunk)(
+            lay.views(state["workers"]), batch)
         g = lay.pack(grads, (k,))
         if corrupt is not None:
             self.corrupt_grads(g, corrupt, r, t)
@@ -411,7 +427,7 @@ class ElasticTrainer:
         losses of every rank (an ``all_reduce`` of sum and count), and the
         (k,) per-worker mean over its live steps, of this rank's rows."""
         k = self._hi - self._lo
-        tau = batches["images"].shape[0]
+        tau = next(iter(batches.values())).shape[0]
         tau_eff = max(1, round(self.ecfg.straggler_tau_scale * tau))
         speed_steps = (None if speed is None else np.maximum(
             1, np.round(np.asarray(speed, np.float32) * np.float32(tau))))

@@ -1,7 +1,8 @@
 """Overlap-aware multi-worker batch pipeline (paper §V-A → training rounds).
 
-A numpy copy of ``repro.data.pipeline.WorkerBatcher``: for the same seeds
-it emits byte-identical round batches.
+A numpy copy of ``repro.data.pipeline.WorkerBatcher`` (images) and
+``TokenWorkerBatcher`` (the LM token stream, overlap on window starts):
+for the same seeds they emit byte-identical round batches.
 
 Given a dataset of n examples and a worker pool, builds the D_j = O ∪ S_j
 partition over the *live* workers and yields per-round batch stacks shaped
@@ -113,4 +114,34 @@ class WorkerBatcher(_SlotMixin):
 
     def round_batches(self) -> Dict[str, np.ndarray]:
         """(τ, cap, B, ...) stacks for one communication round."""
+        return self._stack_round(self.ecfg.tau)
+
+
+@dataclasses.dataclass
+class TokenWorkerBatcher(_SlotMixin):
+    """LM pipeline over a token stream, overlap on window starts."""
+
+    tokens: np.ndarray
+    ecfg: ElasticConfig
+    batch_size: int = 8
+    seq_len: int = 128
+    seed: int = 0
+
+    def __post_init__(self):
+        self._init_slots(rng_base=200)
+
+    def _repartition(self):
+        n_windows = len(self.tokens) - self.seq_len - 1
+        parts = worker_datasets(n_windows, len(self.active),
+                                self.ecfg.overlap_ratio, self.seed)
+        self.starts = dict(zip(self.active, parts))
+
+    def _slot_batch(self, j: int):
+        sel = self.rngs[j].choice(self.starts[j], self.batch_size)
+        idx = sel[:, None] + np.arange(self.seq_len + 1)
+        chunk = self.tokens[idx]
+        return {"tokens": chunk[:, :-1], "targets": chunk[:, 1:]}
+
+    def round_batches(self) -> Dict[str, np.ndarray]:
+        """(τ, cap, B, seq_len) stacks for one communication round."""
         return self._stack_round(self.ecfg.tau)

@@ -4,9 +4,9 @@ MNIST is not available offline, so the paper reproduction uses a synthetic
 28×28 10-class dataset with MNIST-like difficulty: each class is a smooth
 random template; samples add template mixing, per-sample affine jitter
 (shift) and pixel noise. All generation is seeded numpy — fully
-reproducible. A numpy copy of ``repro.data.synthetic.SyntheticImages``: the
-same seed gives the same bytes. (The token stream of the LM families is not
-ported yet.)
+reproducible. Numpy copies of ``repro.data.synthetic.SyntheticImages``
+and ``SyntheticTokens`` (the LM families' token stream): the same seed
+gives the same bytes.
 """
 from __future__ import annotations
 
@@ -58,3 +58,30 @@ class SyntheticImages:
         size = size or self.n_test
         return {"images": self.test_images[:size],
                 "labels": self.test_labels[:size]}
+
+
+@dataclasses.dataclass
+class SyntheticTokens:
+    """Token stream with planted bigram transitions (vocab-sized Markov)."""
+
+    vocab: int = 256
+    n_tokens: int = 200_000
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # sparse deterministic successor table + noise
+        self.succ = rng.integers(0, self.vocab, self.vocab)
+        toks = np.empty(self.n_tokens, np.int32)
+        toks[0] = 0
+        noise = rng.random(self.n_tokens) < 0.2
+        rand = rng.integers(0, self.vocab, self.n_tokens)
+        for i in range(1, self.n_tokens):
+            toks[i] = rand[i] if noise[i] else self.succ[toks[i - 1]]
+        self.tokens = toks
+
+    def batch(self, rng: np.random.Generator, batch_size: int, seq_len: int):
+        starts = rng.integers(0, self.n_tokens - seq_len - 1, batch_size)
+        idx = starts[:, None] + np.arange(seq_len + 1)
+        chunk = self.tokens[idx]
+        return {"tokens": chunk[:, :-1], "targets": chunk[:, 1:]}

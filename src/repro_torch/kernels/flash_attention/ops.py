@@ -11,6 +11,13 @@ kernel; one entry point, one launch count. A CPU tensor runs
 that ``ref.py::mha_reference`` computes, cast back to the input dtype.
 There is no fallback: a CUDA tensor that cannot be launched raises.
 
+The kernel has no backward, as the reference's has none (``jax.grad``
+through the Pallas kernel fails). So on a CUDA tensor the wrapper raises
+when autograd or a ``torch.func`` transform tracks an input
+(:func:`tracked`) instead of returning an output with no graph; the
+layers route such calls to the differentiable attention paths, as the
+reference trains without ``use_pallas``.
+
 Positions are the row indices (the kernel serves full-sequence calls:
 ``Sq == Skv``); K/V heads are shared GQA-style, q head ``h`` reading kv
 head ``h // (H // KVH)``.
@@ -31,6 +38,15 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("flash_attention_fwd", "flash_attention.cu",
                     [_p] * 4 + [_i] * 9)
 BLOCK = 64  # the kernel's q and kv tile: S must be a multiple on the card
+
+
+def tracked(*tensors: torch.Tensor) -> bool:
+    """True when autograd (grad mode on and an input that requires grad)
+    or a ``torch.func`` transform (``grad``, ``jvp``, ``vmap``: a wrapped
+    tensor) tracks any of ``tensors``."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+               or (torch.is_grad_enabled() and t.requires_grad)
+               for t in tensors)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -81,6 +97,11 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk)
+    if tracked(q, k, v):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward; under "
+            "autograd or a torch.func transform use the differentiable "
+            "attention (nn/layers.py dispatches there)")
     if D not in (64, 128) or S % BLOCK:
         raise ValueError(f"flash_attention: the kernel takes D in (64, 128) "
                          f"and S % {BLOCK} == 0, got D={D}, S={S}")

@@ -66,9 +66,12 @@ class FlatLayout:
 
     def pack_tree(self, tree, lead: Tuple[int, ...] = (), device=None
                   ) -> torch.Tensor:
-        """A nested tree (numpy arrays or tensors, reference layout) as a
-        flat float32 buffer on ``device``."""
-        named = {".".join(path): torch.tensor(np.asarray(leaf))
+        """A nested tree (numpy arrays or tensors of any float dtype,
+        bfloat16 too, reference layout) as a flat float32 buffer on
+        ``device``."""
+        named = {".".join(path): (leaf.detach()
+                                  if isinstance(leaf, torch.Tensor)
+                                  else torch.tensor(np.asarray(leaf)))
                  for path, leaf in tree_leaves(tree)}
         if set(named) != set(self.names):
             raise ValueError(

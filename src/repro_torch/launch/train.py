@@ -10,6 +10,11 @@ Two modes:
 - ``--plain``: single-worker training (the k=1 limit), the control; one
   ``step N: loss=...`` line per step.
 
+``--arch`` is the paper's CNN (``paper-cnn``, the default) or a dense LM
+(``qwen3-4b``, ``stablelm-3b``, ``h2o-danube-1.8b``; ``--smoke`` for the
+reduced config), which trains on the synthetic token stream in windows of
+``--seq-len`` tokens; the round lines are the same.
+
 ``--save DIR`` writes the master in the reference's checkpoint format at
 the end of the run; ``--trace`` / ``--dump-trace`` replay and record the
 scenario stream, membership included (controller-applied resizes too);
@@ -36,6 +41,8 @@ rank 0 prints the round lines; every rank prints ``final master l2=``.
 
     python -m repro_torch.launch.train --workers 8 --tau 4 --rounds 8
     python -m repro_torch.launch.train --device cpu --plain --rounds 5
+    python -m repro_torch.launch.train --device cpu --arch stablelm-3b \
+        --smoke --rounds 2 --seq-len 16 --batch-size 2
     python -m repro_torch.launch.train --workers 4 --capacity 8 \
         --membership-scenario scale_up --membership-round 3 --rounds 8
     python -m repro_torch.launch.train --workers 8 --controller rules \
@@ -245,7 +252,8 @@ def main(argv=None):
         optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr),
         elastic=ecfg, rounds=args.rounds,
         rounds_per_call=args.rounds_per_call, seed=args.seed,
-        plain=not args.elastic, batch_size=args.batch_size, n_data=8000,
+        plain=not args.elastic, batch_size=args.batch_size,
+        seq_len=args.seq_len, n_data=8000,
         n_test=1000, data_seed=args.data_seed, save_path=args.save,
         device=device,
         controller=(None if args.controller == "none" else args.controller),

@@ -116,6 +116,11 @@ class DecoderLM:
         return self._with_cache(params, batch, cache, index)
 
     def loss(self, params, batch):
+        """``params``: a nested tree, or the trainer's flat views keyed by
+        dotted leaf name (``FlatLayout.views``), as the CNN takes them."""
+        if "embed" not in params:
+            params = tree_from_leaves((tuple(name.split(".")), leaf)
+                                      for name, leaf in params.items())
         logits, aux = self.forward(params, batch)
         ce = api.cross_entropy(logits, batch["targets"])
         return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}

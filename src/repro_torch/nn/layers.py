@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ops import (flash_attention_bshd,
+                                                     tracked)
 from repro_torch.nn.flash import blockwise_attention
 from repro_torch.nn.param import (ParamSpec, fan_in_init, normal_init,
                                   ones_init, zeros_init)
@@ -172,8 +173,13 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     the flash wrapper runs (the CUDA kernel on the card, its plain
     version on the CPU); otherwise a call with ``Sq >= 1024`` and both
     lengths multiples of 512 runs ``blockwise_attention`` (plain PyTorch
-    on either device); else the plain ``gqa_attention``. Returns
-    ``(out, cache)``.
+    on either device); else the plain ``gqa_attention``. The flash kernel
+    has no backward (nor has the reference's, which training never
+    reaches: ``RunSpec.use_pallas`` is off by default), so a call that
+    autograd or a ``torch.func`` transform tracks (the trainer's
+    ``vmap(jvp(grad))``) skips the flash branch and takes the
+    reference's training path, blockwise or ``gqa_attention`` by the same
+    shape rule. Returns ``(out, cache)``.
     """
     B, Sq, _ = x.shape
     dt = x.dtype
@@ -197,7 +203,7 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     kv_pos = torch.arange(Skv, device=x.device).expand(B, Skv)
 
     if (Sq == Skv and Sq % 128 == 0 and cfg.hd in (64, 128)
-            and cfg.rotary_pct == 1.0):
+            and cfg.rotary_pct == 1.0 and not tracked(q, k, v)):
         out = flash_attention_bshd(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
             window=cfg.sliding_window, chunk=cfg.attention_chunk)
@@ -217,8 +223,10 @@ def gqa_attention(q, k, v, mask):
     KVH = k.shape[2]
     q = q.reshape(B, Sq, KVH, H // KVH, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float()
-    scores = scores / math.sqrt(D)
-    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    # scaled and masked in place (the same values): nothing else holds the
+    # scores, and at training shapes each copy of them, with its tangent
+    # under the trainer's jvp, is the largest temporary of the layer
+    scores.div_(math.sqrt(D)).masked_fill_(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, D)

@@ -15,7 +15,7 @@ reference's threefry probes and a stand-alone run draws its own.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.func import grad, jvp, vmap
@@ -36,20 +36,27 @@ def grad_hvp(loss_fn: Callable, params: Params, z: Params, *inputs
 
 
 def hessian_diag_with_grad(loss_fn: Callable, params: Params,
-                           probes: List[Params], *inputs):
-    """Batched over a leading worker axis: ``params`` leaves are (k, ...)
-    and each entry of ``probes`` (one per Hutchinson sample) holds (k, ...)
-    ±1 tangents. Returns ``(grads, diag, loss)``: (k, ...) gradients, the
+                           probes: List[Params], *inputs,
+                           chunk_size: Optional[int] = None):
+    """Batched over a leading worker axis: ``params`` leaves are (k, ...),
+    each entry of ``probes`` (one per Hutchinson sample) holds (k, ...)
+    ±1 tangents, and ``inputs`` (tensors, or dicts of them such as a batch)
+    carry the worker axis first too. Returns ``(grads, diag, loss)``: (k, ...) gradients, the
     (k, ...) float32 Hutchinson diagonal and the (k,) losses.
 
     Samples accumulate left to right from the first and divide by S only
     when S > 1, the reference's order (``repro.optim.hutchinson``).
+    ``chunk_size`` maps that many workers at a time (``torch.func.vmap``'s
+    ``chunk_size``; None: all at once), bounding the activations the
+    transform keeps alive.
     """
-    batched = vmap(lambda p, z, *xs: grad_hvp(loss_fn, p, z, *xs))
+    batched = vmap(lambda p, z, *xs: grad_hvp(loss_fn, p, z, *xs),
+                   chunk_size=chunk_size)
     grads, acc, loss = None, None, None
     for z in probes:
         g, hz, l = batched(params, z, *inputs)
         one = {name: z[name].float() * hz[name].float() for name in hz}
+        del hz
         if acc is None:
             grads, acc, loss = g, one, l
         else:

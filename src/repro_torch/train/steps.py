@@ -1,7 +1,8 @@
 """The single-worker train step: the k=1 plain control (``RunSpec.plain``).
 
 The port of ``repro.train.steps.make_train_step`` / ``init_train_state``
-for the paper's CNN. State lives in flat float32 buffers in the
+for any model with ``loss(params, batch)`` (the paper's CNN, the dense
+LMs). State lives in flat float32 buffers in the
 reference's leaf order (``repro_torch.kernels.flatten``), updated in
 place: ``params`` and the optimizer's ``m``/``v`` are (n,), ``count`` a
 0-d int32 tensor, ``step`` a Python int.
@@ -55,8 +56,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *,
                     probe_fn: Optional[ProbeFn] = None, seed: int = 0,
                     device="cuda"):
     """``train_step(state, batch, step) -> (state, {"loss"})``, in place.
-    ``batch`` holds one worker's ``images`` (B, 28, 28, 1) float32 and
-    ``labels`` (B,) int64 on the state's device; ``step`` keys the probe
+    ``batch`` holds one worker's batch dict on the state's device (the
+    CNN's ``images`` (B, 28, 28, 1) float32 and ``labels`` (B,) int64, an
+    LM's ``tokens`` and ``targets`` (B, S) int64); ``step`` keys the probe
     seam (None draws ``RademacherProbes`` seeded with ``seed``)."""
     device = resolve_device(device)
     opt = make_optimizer(opt_cfg)
@@ -66,21 +68,21 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *,
                                     opt_cfg.hutchinson_samples, device)
     b1, b2 = opt_cfg.betas
 
-    def loss_fn(p, images, labels):
-        return model.loss(p, {"images": images, "labels": labels})[0]
+    def loss_fn(p, b):
+        return model.loss(p, b)[0]
 
-    def loss_and_value(p, images, labels):
-        value = loss_fn(p, images, labels)
+    def loss_and_value(p, b):
+        value = loss_fn(p, b)
         return value, value
 
     def train_step(state, batch, step: int):
         p, o = state["params"], state["opt"]
-        images, labels = batch["images"][None], batch["labels"][None]
+        one = {key: val[None] for key, val in batch.items()}
         if opt.needs_hessian:
             z = probe_fn(step, 0, 0)
             probes = [layout.views(z[s][None]) for s in range(z.shape[0])]
             grads, diag, loss = hessian_diag_with_grad(
-                loss_fn, layout.views(p[None]), probes, images, labels)
+                loss_fn, layout.views(p[None]), probes, one)
             hs = {name: spatial_average(d, opt_cfg.spatial_block,
                                         batch_dims=1)
                   for name, d in diag.items()}
@@ -98,7 +100,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, *,
                                 pack_scalars(opt_cfg, o["count"]))
         else:
             grads, loss = vmap(grad(loss_and_value, has_aux=True))(
-                layout.views(p[None]), images, labels)
+                layout.views(p[None]), one)
             opt.step(p[None], layout.pack(grads, (1,)),
                      {key: val[None] for key, val in o.items()})
         state["step"] += 1

@@ -236,3 +236,27 @@ def test_blockwise_attention_on_the_card(cuda, dtype, tol, mask):
     want = naive_attention(q, k, v, q_pos=pos, kv_pos=pos, **mask)
     assert got.dtype == dtype and got.device.type == "cuda"
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_gradients(cuda):
+    """The kernel has no backward: on CUDA tensors that autograd or a
+    ``torch.func`` transform tracks, the wrapper raises instead of
+    returning an output with no graph, and launches nothing; under
+    ``no_grad`` the same inputs run the kernel."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn(1, 128, 4, 64, generator=gen, device=cuda)
+    kv = torch.randn(1, 128, 2, 64, generator=gen, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfla.flash_attention_bshd(q.clone().requires_grad_(), kv, kv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        torch.func.grad(lambda x: tfla.flash_attention_bshd(x, kv, kv)
+                        .sum())(q)
+    assert kernels()["flash_attention_fwd"].launches == 0
+    with torch.no_grad():
+        out = tfla.flash_attention_bshd(q.clone().requires_grad_(), kv, kv)
+    torch.cuda.synchronize()
+    assert kernels()["flash_attention_fwd"].launches == 1
+    torch.testing.assert_close(out, tfla.flash_attention_plain(q, kv, kv),
+                               rtol=2e-5, atol=2e-5)

@@ -123,6 +123,10 @@ def test_plain_session_matches_reference(opt):
 
 
 def test_plain_mode_forces_the_k1_control_and_refuses_lm_training():
+    """Plain mode is the k=1 control for the CNN and for a dense LM alike
+    (LM training is ported: an LM in plain mode runs one optimizer step a
+    round on the token stream, and its eval has no accuracy); an arch
+    the port lacks is still refused by name, in plain mode and not."""
     from repro_torch.configs.base import ElasticConfig, get_config
 
     sess = ElasticSession(RunSpec(
@@ -138,8 +142,18 @@ def test_plain_mode_forces_the_k1_control_and_refuses_lm_training():
     with pytest.raises(ValueError, match="plain"):
         z = np.zeros((1, 1), bool)
         RunSpec(schedule=ScenarioSchedule(z, z, z), **_plain_kw(rounds=1))
+    lm = ElasticSession(RunSpec(
+        model_cfg=get_config("qwen3-4b", smoke=True),
+        elastic=ElasticConfig(num_workers=4, tau=2), device="cpu",
+        **_plain_kw(rounds=2, batch_size=2, seq_len=16, n_tokens=2000)))
+    assert (lm.ecfg.cap, lm.ecfg.tau, lm.schedule) == (1, 1, None)
+    assert lm.batcher.round_batches()["tokens"].shape == (1, 1, 2, 16)
+    recs = lm.run()
+    assert [r.round for r in recs] == [0, 1] and lm.state["step"] == 2
+    assert all(np.isfinite(r.loss) and r.eval_acc is None
+               and np.isfinite(r.eval_loss) for r in recs)
     for plain in (True, False):
-        with pytest.raises(NotImplementedError, match="LM training"):
-            ElasticSession(RunSpec(
-                model_cfg=get_config("qwen3-4b", smoke=True), device="cpu",
-                **_plain_kw(plain=plain, rounds=1)))
+        for arch in ("rwkv6-3b", "mixtral-8x22b"):
+            with pytest.raises(NotImplementedError, match=arch):
+                ElasticSession(RunSpec(arch=arch, smoke=True, device="cpu",
+                                       **_plain_kw(plain=plain, rounds=1)))

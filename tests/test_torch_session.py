@@ -321,14 +321,16 @@ def test_first_order_curves_match_reference_run_one(method):
 
 
 def test_session_refuses_unported_features_by_name():
-    """LM training still raises naming its slice. Membership (capacity,
-    an ``active`` schedule), the rule controller, ``detector_blind``,
-    ``apply``, hierarchy and sharded placement have since been ported:
-    they now construct (tests/test_torch_membership.py,
+    """The model families the port lacks still raise naming themselves
+    (an arch outside ``PORTED_ARCHS``, an MoE config). Membership
+    (capacity, an ``active`` schedule), the rule controller,
+    ``detector_blind``, ``apply``, hierarchy, sharded placement and LM
+    training on the dense family have since been ported: they now
+    construct (tests/test_torch_membership.py,
     tests/test_torch_control.py, tests/test_torch_hierarchy.py,
-    tests/test_torch_placement.py and tests/test_torch_distributed.py run
-    them); with no process group, sharded placement runs at world size
-    1."""
+    tests/test_torch_placement.py, tests/test_torch_distributed.py and
+    tests/test_torch_lm_session.py run them); with no process group,
+    sharded placement runs at world size 1."""
     hier = ElasticSession(_spec(elastic=dict(groups=3, comm_mode="fused")))
     assert hier.trainer._n_groups == 3
     assert hier.state["submasters"].shape == (3, hier.layout.n)
@@ -340,8 +342,20 @@ def test_session_refuses_unported_features_by_name():
             placement="sharded", comm_mode="fused", **extra)))
         assert sharded.trainer._world == 1 and sharded.capacity == 3
         assert sharded.state["workers"].shape == (3, sharded.layout.n)
-    with pytest.raises(NotImplementedError, match="LM training"):
-        ElasticSession(_spec(model_cfg=tget("qwen3-4b", smoke=True)))
+    lm = ElasticSession(_spec(model_cfg=tget("qwen3-4b", smoke=True),
+                              seq_len=16, n_tokens=2000))
+    assert lm.state["workers"].shape == (3, lm.layout.n)
+    assert sorted(lm._test) == ["targets", "tokens"]
+    for arch in ("rwkv6-3b", "mixtral-8x22b"):
+        with pytest.raises(NotImplementedError, match=arch):
+            ElasticSession(_spec(arch=arch, smoke=True))
+    moe = tget("qwen3-4b", smoke=True).replace(num_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        ElasticSession(_spec(model_cfg=moe))
+    with pytest.raises(ValueError, match="seq_len"):
+        _spec(seq_len=0)
+    with pytest.raises(ValueError, match="n_tokens"):
+        _spec(n_tokens=0)
     assert ElasticSession(_spec(elastic=dict(capacity=4))).capacity == 4
     assert ElasticSession(_spec(controller="rules")).controller is not None
     z = np.zeros((3, 3), bool)
