@@ -10,12 +10,13 @@ failure:
 1. environment: torch, CUDA, and the card's name and power limit;
 2. build: nvcc compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a,
    all sources at once; the flash-attention library's SASS must hold
-   HGMMA (tensor-core) instructions, counted with ``cuobjdump``;
+   HGMMA (tensor-core) instructions of both kernels, bf16 and TF32,
+   counted with ``cuobjdump``;
 3. kernels: each CUDA kernel at its path's shapes (the elastic kernels
    at k=8 workers, n=1,199,882 parameters, the batched exchange and the
    single-worker AdaHessian step also at an odd n; flash attention over
-   the CPU tests' sweep and qwen3-4b's prefill, in float32 (CUDA cores)
-   and bfloat16 (tensor cores)) against its
+   the CPU tests' sweep, qwen3-4b's prefill and the LM evals' shapes, in
+   float32 (split TF32) and bfloat16, both on the tensor cores) against its
    plain PyTorch version on the same inputs, at the reference's
    tolerances, then timed with CUDA events (median of 30 after warm-up)
    beside the plain version, the card's bound and, for flash attention,
@@ -172,14 +173,20 @@ SRC = ROOT / "src"
 K, N = 8, 1_199_882          # the §VI trainer at k=8: PaperCNN's n
 N_ODD = 999_983              # an odd n for the single-worker step
 # (memory B/s, f32 FLOP/s without tensor cores, dense bf16 tensor-core
-# FLOP/s), NVIDIA data sheets
-CARDS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
+# FLOP/s, dense TF32 tensor-core FLOP/s: half the bf16 rate), NVIDIA data
+# sheets
+CARDS = {"H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
+         "H200": (4.8e12, 67e12, 989e12, 495e12),
+         "H100": (3.35e12, 67e12, 989e12, 495e12)}
 # qwen3-4b's prefill in the continuous engine: B, H, KVH, S, D
 SERVE_SHAPE = (1, 32, 8, 512, 128)
+# the LM evals' flash calls (float32): 8a (qwen3-4b width, batch 2, 128
+# tokens) and 8b (train_lm_elastic's 100m preset, batch 16, 512 tokens)
+EVAL_SHAPES = {"8a": (2, 32, 8, 128, 128), "8b": (16, 12, 3, 512, 64)}
 FLASH_SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
-               (1, 4, 2, 256, 128), (1, 8, 2, 512, 64), SERVE_SHAPE]
+               (1, 4, 2, 256, 128), (1, 8, 2, 512, 64), SERVE_SHAPE,
+               *EVAL_SHAPES.values()]
 SECTION_VI_KERNELS = ("adahessian_update_batched", "elastic_update_batched",
                       "elastic_update")
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
@@ -199,15 +206,17 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hgmma_count(path) -> int:
-    """HGMMA (warpgroup tensor-core) instructions in a library's SASS, as
-    ``cuobjdump -sass <lib> | grep -c HGMMA`` counts them."""
+def hgmma_count(path):
+    """HGMMA (warpgroup tensor-core) instructions in a library's SASS, all
+    and TF32 ones, as ``cuobjdump -sass <lib> | grep -c HGMMA`` and ``...
+    | grep HGMMA | grep -c TF32`` count them."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    lines = [line for line in sass.splitlines() if "HGMMA" in line]
+    return len(lines), sum("TF32" in line for line in lines)
 
 
 def median_ms(torch, fn, reps: int = 30, warm: int = 5,
@@ -248,7 +257,7 @@ def check_kernels(torch, rates):
     from repro_torch.kernels.elastic import ops as ela
     from repro_torch.optim.adahessian import bias_corrections
 
-    bw, flops, _ = rates
+    bw, flops = rates[:2]
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
     rnd = lambda *shape, s=1.0: s * torch.randn(*shape, generator=gen,
@@ -406,16 +415,19 @@ def check_kernels(torch, rates):
 
 def check_flash(torch, rates):
     """Phase 3b: the flash-attention kernel against its plain version over
-    the CPU tests' sweep and the serving shape, float32 and bfloat16, at
-    the reference's tolerances; then timed at the serving shape beside the
-    plain version, the byte/operation bound, and one library call
-    (``scaled_dot_product_attention``, timed only, never used by the
-    port)."""
+    the CPU tests' sweep, the serving shape and the LM evals' shapes,
+    float32 and bfloat16, at the reference's tolerances; then timed beside
+    the plain version, the byte/operation bound, and one library call
+    (``scaled_dot_product_attention``, timed only, never used by the port):
+    bfloat16 at the serving shape, float32 (split TF32) there and at the 8a
+    and 8b evals' shapes. The float32 bound is the split-TF32 route's
+    (three TF32 products at the dense TF32 rate, or the bytes, whichever is
+    longer), with the CUDA-core route's beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fla
 
-    bw, f32_rate, bf16_rate = rates
+    bw, f32_rate, bf16_rate, tf32_rate = rates
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(1)
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -442,42 +454,64 @@ def check_flash(torch, rates):
     log(f"  flash_attention_fwd: {len(FLASH_SWEEP)} shapes x "
         f"{len(FLASH_MASKS)} masks, max abs err vs plain {sweep_err}")
 
-    B, H, KVH, S, D = SERVE_SHAPE
-    pos = torch.arange(S)
-    live_pairs = int((pos[None, :] <= pos[:, None]).sum())  # causal
-    entry = {"name": fla.KERNEL.name, "route": "cuda",
-             "source": "src/repro_torch/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
-             "shape_bshd": [B, S, H, KVH, D], "sweep_max_abs_err": sweep_err}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = qkv(*SERVE_SHAPE, dtype)
+    def timed(shape, dtype):
+        """One causal call at ``shape``: error against plain and SDPA, the
+        three times, and the bounds."""
+        B, H, KVH, S, D = shape
+        q, k, v = qkv(*shape, dtype)
         got = fla.flash_attention_bshd(q, k, v)
         want = fla.flash_attention_plain(q, k, v)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
+        out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+               "ms": median_ms(torch, lambda: fla.flash_attention_bshd(
+                   q, k, v)),
+               "plain_ms": median_ms(torch, lambda: fla.flash_attention_plain(
+                   q, k, v)),
+               "library_ms": median_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True))}
         lib_err = float((lib.transpose(1, 2).float() - want.float())
                         .abs().max())
-        ms = median_ms(torch, lambda: fla.flash_attention_bshd(q, k, v))
-        plain_ms = median_ms(torch, lambda: fla.flash_attention_plain(q, k, v))
-        lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
         nbytes = (2 * B * S * H * D + 2 * B * S * KVH * D) * q.element_size()
-        nops = 4 * D * live_pairs * B * H
-        rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
-        b_ms, o_ms = nbytes / bw * 1e3, nops / rate * 1e3
-        bound = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-        tag = "" if dtype == torch.bfloat16 else "f32_"
-        entry.update({f"{tag}max_abs_err": err, f"{tag}ms": ms,
-                      f"{tag}plain_ms": plain_ms, f"{tag}bound_ms": bound[0],
-                      f"{tag}bound_by": bound[1], f"{tag}library_ms": lib_ms})
+        nops = 4 * D * (S * (S + 1) // 2) * B * H  # live causal pairs
+        b_ms = nbytes / bw * 1e3
+
+        def bound(o_ms):
+            return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+        if dtype == torch.bfloat16:
+            out["bound_ms"], out["bound_by"] = bound(nops / bf16_rate * 1e3)
+        else:  # the route taken: three TF32 products; the CUDA cores' beside
+            out["bound_ms"], out["bound_by"] = bound(
+                3 * nops / tf32_rate * 1e3)
+            out["cuda_core_bound_ms"] = bound(nops / f32_rate * 1e3)[0]
+        out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
         log(f"  flash_attention_fwd {str(dtype).removeprefix('torch.')} at "
-            f"B,H,KVH,S,D={SERVE_SHAPE} causal: max_abs_err {err:.3g} "
-            f"(sdpa vs plain {lib_err:.3g}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound[0]:.4f} "
-            f"ms ({bound[1]}: {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP)")
+            f"B,H,KVH,S,D={shape} causal: max_abs_err "
+            f"{out['max_abs_err']:.3g} (sdpa vs plain {lib_err:.3g}), kernel "
+            f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, sdpa "
+            f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}: {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
+            f"GFLOP; {out['pct_of_bound']:.0f}% of it)"
+            + (f", CUDA-core bound {out['cuda_core_bound_ms']:.4f} ms"
+               if "cuda_core_bound_ms" in out else ""))
+        return out
+
+    B, H, KVH, S, D = SERVE_SHAPE
+    entry = {"name": fla.KERNEL.name, "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
+             "shape_bshd": [B, S, H, KVH, D], "sweep_max_abs_err": sweep_err}
+    entry.update(timed(SERVE_SHAPE, torch.bfloat16))
+    entry.update({f"f32_{key}": val for key, val in
+                  timed(SERVE_SHAPE, torch.float32).items()})
+    for phase, shape in EVAL_SHAPES.items():
+        B, H, KVH, S, D = shape
+        entry[f"f32_eval_{phase}"] = {"shape_bshd": [B, S, H, KVH, D],
+                                      **timed(shape, torch.float32)}
     return entry
 
 
@@ -2732,7 +2766,7 @@ def main() -> int:
     card, rates = card_rates(smi.split(",")[0])
     log(f"    rates of record for {card}: {rates[0] / 1e12:.2f} TB/s, "
         f"{rates[1] / 1e12:.0f} TFLOP/s f32, {rates[2] / 1e12:.0f} TFLOP/s "
-        "dense bf16")
+        f"dense bf16, {rates[3] / 1e12:.1f} TFLOP/s dense TF32")
 
     t0 = time.perf_counter()
     libs = build()
@@ -2740,18 +2774,20 @@ def main() -> int:
         kernel.load()
     log(f"[2] built {sorted(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    hgmma = hgmma_count(libs["flash_attention.cu"])
+    hgmma, hgmma_tf32 = hgmma_count(libs["flash_attention.cu"])
     log(f"    flash_attention library SASS: {hgmma} HGMMA instructions "
-        "(cuobjdump -sass | grep -c HGMMA)")
-    if hgmma == 0:
-        raise AssertionError("the flash-attention library has no HGMMA: its "
-                             "bf16 kernel does not use the tensor cores")
+        f"(cuobjdump -sass | grep -c HGMMA), {hgmma_tf32} of them TF32")
+    if hgmma == hgmma_tf32 or hgmma_tf32 == 0:
+        raise AssertionError("the flash-attention library lacks bf16 or TF32 "
+                             "HGMMA: one of its kernels does not use the "
+                             "tensor cores")
 
     log(f"[3] kernels vs plain versions at k={K}, n={N}")
     table = check_kernels(torch, rates)
     log(f"[3b] flash attention vs plain version, {len(FLASH_SWEEP)} shapes")
     table.append(check_flash(torch, rates))
     table[-1]["hgmma_count"] = hgmma
+    table[-1]["tf32_hgmma_count"] = hgmma_tf32
 
     log("[4] §VI path: paper_repro.run_one on the card")
     totals, _ = main_path(torch)

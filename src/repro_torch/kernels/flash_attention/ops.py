@@ -5,9 +5,10 @@ the CPU.
 ``repro.kernels.flash_attention.ops.flash_attention_bshd`` does. A CUDA
 tensor launches ``csrc/flash_attention.cu`` (which replaces the Pallas
 ``flash_attention`` of ``repro/kernels/flash_attention/kernel.py``):
-bfloat16 runs its tensor-core kernel (wgmma, TMA), float32 its CUDA-core
-kernel; one entry point, one launch count. A CPU tensor runs
-:func:`flash_attention_plain`, the full-matrix masked softmax in float32
+bfloat16 runs its bf16 tensor-core kernel, float32 its split-TF32 one
+(wgmma and TMA both; each float32 product as three TF32 products, hi*hi +
+hi*lo + lo*hi, inside the float32 tolerance); one entry point, one launch
+count. A CPU tensor runs :func:`flash_attention_plain`, the full-matrix masked softmax in float32
 that ``ref.py::mha_reference`` computes, cast back to the input dtype.
 There is no fallback: a CUDA tensor that cannot be launched raises.
 

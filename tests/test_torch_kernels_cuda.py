@@ -3,9 +3,10 @@ card, with the reference's tolerances: the elastic-training kernels at the
 paper CNN's parameter count (AdaHessian steps, batched and single-worker,
 rtol 2e-5, atol 2e-6; batched
 elastic exchange rtol 1e-5, atol 1e-6; one-worker exchange 1e-6), flash
-attention over the CPU tests' sweep plus qwen3-4b's prefill shape (2e-5
-in float32, 2e-2 in bfloat16; bfloat16 runs the tensor-core kernel, swept
-over D, S, GQA ratio and every mask), and the blockwise attention of
+attention over the CPU tests' sweep plus qwen3-4b's prefill shape and the
+LM evals' shapes (2e-5 in float32, 2e-2 in bfloat16; each dtype's
+tensor-core kernel, bf16 and split TF32, swept over D, S, GQA ratio and
+every mask), and the blockwise attention of
 ``nn/flash.py`` (plain PyTorch) against its naive oracle on the card
 (3e-5 in float32, 2e-2 in bfloat16). Marked ``cuda``: without a card
 every test skips. Imports no JAX, so it runs on the machine with the card:
@@ -164,7 +165,9 @@ def test_elastic_one_worker_kernel_matches_plain(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,H,KVH,S,D", [
     (1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
-    (1, 32, 8, 512, 128)])  # the last: qwen3-4b's prefill at 512 tokens
+    (1, 32, 8, 512, 128),   # qwen3-4b's prefill at 512 tokens
+    (2, 32, 8, 128, 128),   # the LM eval of chip_smoke.py's 8a
+    (16, 12, 3, 512, 64)])  # the LM eval of train_lm_elastic's 100m preset
 @pytest.mark.parametrize("mask", [
     dict(causal=True), dict(causal=False), dict(causal=True, window=17),
     dict(causal=True, window=96), dict(causal=True, chunk=64)])
@@ -209,6 +212,27 @@ def test_flash_bf16_tensor_core_sweep(cuda, D, S, group, mask):
     want = tfla.flash_attention_plain(q, k, v, **mask)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [128, 256, 512, 1024])
+@pytest.mark.parametrize("H,KVH", [(2, 2), (4, 2), (8, 2), (9, 3)])
+@pytest.mark.parametrize("mask", FLASH_MASKS)
+def test_flash_f32_split_tf32_sweep(cuda, D, S, H, KVH, mask):
+    """The float32 (split-TF32 tensor-core) kernel over head dims, lengths,
+    GQA ratios H/KVH 1, 2, 4 and 3 (with KVH=3, as the 100m preset has) and
+    every mask, against the plain version at 2e-5."""
+    gen = torch.Generator(cuda).manual_seed(D + S + H)
+    q = torch.randn(2, S, H, D, generator=gen, device=cuda)
+    k, v = (torch.randn(2, S, KVH, D, generator=gen, device=cuda)
+            for _ in range(2))
+    reset_launch_counts()
+    got = tfla.flash_attention_bshd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert kernels()["flash_attention_fwd"].launches == 1
+    want = tfla.flash_attention_plain(q, k, v, **mask)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
