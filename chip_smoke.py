@@ -20,7 +20,14 @@ failure:
    plain PyTorch version on the same inputs, at the reference's
    tolerances, then timed with CUDA events (median of 30 after warm-up)
    beside the plain version, the card's bound and, for flash attention,
-   ``scaled_dot_product_attention`` (timed only);
+   ``scaled_dot_product_attention`` (timed only); flash attention also at
+   the MoE admits in bf16 (moonshot-v1-16b-a3b's (1, 16, 16, 512, 128)
+   causal, mixtral-8x22b's S=8192 with its window of 4096, scout's
+   S=12288 with its chunk of 8192), held to plain one kv head at a time,
+   elementwise (2e-2) and each (query row, head) norm-wise (1e-2 of the
+   row's norm; 1e-4 in float32), with plain versions whose window or
+   chunk is one 64-key tile shorter or longer shown to fail that check,
+   and timed beside SDPA with the same mask;
 4. §VI path: the paper's ``run_one`` for all six methods at k=4, τ=1,
    then DEAHES-O at k=8, τ=4 in both comm modes, with every launch count
    zeroed just before and read just after: each of the three training
@@ -98,6 +105,19 @@ failure:
    tokens, capacity 4: blockwise admits x 24 times, 108 of 256 block
    pairs each (the window masks), no kernel, every logit finite; a
    profiler window over one admit;
+6m. moonshot-v1-16b-a3b at full size (28,386,592,768 bf16 params drawn
+   on the card; 1 dense + 47 MoE layers of 64 experts, top-6, 2 shared)
+   through ``serve_continuous``: 8 bursty requests, prompts of 256 and 512
+   padded to 512, 32 new tokens, capacity 4; counts zeroed just before:
+   flash attention admits x 48 times, every call at (1, 512) bf16 causal,
+   nothing else launched, ``apply_moe`` 47 times per admit and per tick,
+   every logit finite; tok/s, TTFT, latency, admit and tick ms, peak GB;
+   a profiler window over one tick and one admit;
+6x. mixtral-8x22b (prompt 8192, twice its window of 4096) and
+   llama4-scout-17b-a16e (prompt 12288, past its chunk of 8192) at full
+   width cut to 2 layers, bf16, 2 requests of 8 new tokens at capacity 2:
+   flash attention admits x 2 with the window or the chunk passed,
+   ``apply_moe`` twice per admit and per tick, every logit finite;
 8a. LM training (run before 6w, which uses its session): qwen3-4b at
    full width cut to 4 layers (792,681,984 float32 params) through
    ``RunSpec`` / ``ElasticSession``, AdaHessian, DEAHES-O, k=2, τ=1,
@@ -125,6 +145,11 @@ failure:
    ``scaled_dot_product_attention`` with the same mask (timed only); then
    phase 7 for stablelm-3b and h2o-danube-1.8b at 1024 tokens (the
    blockwise branch);
+7m. phase 7 for moonshot-v1-16b-a3b at full width cut to 2 layers (1
+   dense + 1 MoE, 1,344,940,032 float32 params): K5 once a layer in the
+   card's prefill, logits within 1e-3 of the logit scale, and every
+   router call's chosen experts equal on both devices (a differing token
+   only where its router margin is within the devices' disagreement);
 8b. ``repro_torch.examples.train_lm_elastic --preset 100m`` (the
    reference's preset for real hardware: 12 layers, head_dim 64, 512
    tokens, batch 16) at k=4, τ=2, 3 rounds, sequential comm, an eval
@@ -139,14 +164,19 @@ failure:
    autograd and ``torch.func.grad``, launching nothing; a flash-shaped
    ``DecoderLM.loss(...).backward()`` at SMOKE gives every leaf the CPU's
    gradient within 1e-3 of its scale, with no flash launch under grad;
+8e. MoE LM training card vs CPU at SMOKE (float32), 8c's rules at τ=1,
+   128 tokens, 3 rounds: moonshot-smoke (fused: K1 and K2 once a round)
+   and mixtral-smoke (sequential: K1 once a round, K3 once a worker a
+   round);
 9. a ``{"train_cli": ...}`` line, a ``{"serving": ...}`` line, a
    ``{"membership": ...}`` line, a ``{"control": ...}`` line, a
    ``{"hierarchy": ...}`` line, a ``{"sharded": ...}`` line, a
    ``{"dense_family": ...}`` line, a ``{"hotswap": ...}`` line, a
-   ``{"lm_training": ...}`` line (8a-8d), a
-   ``{"kernels": [...]}`` line (the batched kernels' entries with their
-   launches on the hierarchy run and on each rank of the sharded runs
-   too, every entry with its launches in phase 6w and in 8a-8c), the
+   ``{"lm_training": ...}`` line (8a-8e), a ``{"moe": ...}`` line (6m,
+   6x, 7m), a ``{"kernels": [...]}`` line (the batched kernels' entries
+   with their launches on the hierarchy run and on each rank of the
+   sharded runs too, every entry with its launches in phase 6w, in 8a-8e
+   and in 6m, 6x and 7m), the
    ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -420,9 +450,10 @@ def check_flash(torch, rates):
     the plain version, the byte/operation bound, and one library call
     (``scaled_dot_product_attention``, timed only, never used by the port):
     bfloat16 at the serving shape, float32 (split TF32) there and at the 8a
-    and 8b evals' shapes. The float32 bound is the split-TF32 route's
-    (three TF32 products at the dense TF32 rate, or the bytes, whichever is
-    longer), with the CUDA-core route's beside it."""
+    and 8b evals' shapes, bfloat16 at the MoE admits with their masks. The
+    float32 bound is the split-TF32 route's (three TF32 products at the
+    dense TF32 rate, or the bytes, whichever is longer), with the CUDA-core
+    route's beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fla
@@ -454,29 +485,101 @@ def check_flash(torch, rates):
     log(f"  flash_attention_fwd: {len(FLASH_SWEEP)} shapes x "
         f"{len(FLASH_MASKS)} masks, max abs err vs plain {sweep_err}")
 
-    def timed(shape, dtype):
-        """One causal call at ``shape``: error against plain and SDPA, the
-        three times, and the bounds."""
+    # each (query row, head) of the timed calls: |got - want| / |want| over D
+    row_tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+    def timed(shape, dtype, mask=None):
+        """One causal call at ``shape`` with ``mask`` (a window or a chunk,
+        or none), held to plain elementwise at the tolerance above and each
+        (query row, head) norm-wise; past S=512 one kv head (its query
+        heads) at a time, as phase 7b holds blockwise attention (the full
+        (H, S, S) scores of mixtral's and scout's admits would not fit
+        beside each other). With a window or a chunk, plain versions with
+        it one 64-key tile shorter and longer must fail the norm-wise check,
+        which shows that the check sees the mask. Then timed beside the
+        plain version (the same per-head loop) and SDPA with the same mask,
+        and the bounds over the live (query, key) pairs."""
         B, H, KVH, S, D = shape
+        G = H // KVH
+        mask = mask or {}
         q, k, v = qkv(*shape, dtype)
-        got = fla.flash_attention_bshd(q, k, v)
-        want = fla.flash_attention_plain(q, k, v)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        torch.cuda.synchronize()
-        out = {"max_abs_err": float((got.float() - want.float()).abs().max()),
-               "ms": median_ms(torch, lambda: fla.flash_attention_bshd(
-                   q, k, v)),
-               "plain_ms": median_ms(torch, lambda: fla.flash_attention_plain(
-                   q, k, v)),
-               "library_ms": median_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True))}
-        lib_err = float((lib.transpose(1, 2).float() - want.float())
-                        .abs().max())
+        got = fla.flash_attention_bshd(q, k, v, causal=True, **mask)
+        parts = range(KVH) if S > 512 else [None]
+
+        def plain(h, m=mask):
+            if h is None:
+                return fla.flash_attention_plain(q, k, v, causal=True, **m)
+            heads = slice(h * G, (h + 1) * G)
+            return fla.flash_attention_plain(
+                q[:, :, heads], k[:, :, h:h + 1], v[:, :, h:h + 1],
+                causal=True, **m)
+
+        def held(m, strict):
+            """(max abs err, worst row's norm-wise err) of ``got`` against
+            plain under mask ``m``; elementwise-asserted when ``strict``."""
+            worst = rel = 0.0
+            for h in parts:
+                want = plain(h, m).float()
+                part = (got if h is None
+                        else got[:, :, h * G:(h + 1) * G]).float()
+                if strict:
+                    torch.testing.assert_close(part, want, rtol=tols[dtype],
+                                               atol=tols[dtype])
+                worst = max(worst, float((part - want).abs().max()))
+                rel = max(rel, float(((part - want).norm(dim=-1)
+                                      / want.norm(dim=-1)).max()))
+                del want, part
+            return worst, rel
+
+        out = {}
+        out["max_abs_err"], out["max_row_rel_err"] = held(mask, True)
+        row_tol = row_tols[dtype]
+        if out["max_row_rel_err"] > row_tol:
+            raise AssertionError(
+                f"flash at {shape} {mask}: a (row, head) off plain by "
+                f"{out['max_row_rel_err']:.3g} of its norm > {row_tol}")
+        shifted = {}
+        for key in ("window", "chunk"):
+            for step in ((-64, 64) if key in mask else ()):
+                name = f"{key} {mask[key] + step}"
+                shifted[name] = held({**mask, key: mask[key] + step},
+                                     False)[1]
+                if shifted[name] <= row_tol:
+                    raise AssertionError(
+                        f"flash at {shape} {mask}: plain with {name} passes "
+                        f"the norm-wise check ({shifted[name]:.3g})")
+        if shifted:
+            out["shifted_plain_row_rel_err"] = shifted
+        reps = 30 if S <= 512 else 10
+        out["ms"] = median_ms(torch, lambda: fla.flash_attention_bshd(
+            q, k, v, causal=True, **mask), reps=reps)
+        out["plain_ms"] = median_ms(
+            torch, lambda: [plain(h) for h in parts],
+            reps=reps if S <= 512 else 3, warm=5 if S <= 512 else 1)
+        pos = torch.arange(S, device=dev)
+        live = pos[None, :] <= pos[:, None]
+        if "window" in mask:
+            live &= (pos[:, None] - pos[None, :]) < mask["window"]
+        if "chunk" in mask:
+            live &= (pos[:, None] // mask["chunk"]) == (
+                pos[None, :] // mask["chunk"])
+        qt = q.transpose(1, 2)
+        if mask:  # the masked SDPA takes no gqa: k and v widened to H
+            kt, vt = (x.transpose(1, 2).repeat_interleave(G, 1)
+                      for x in (k, v))
+            kw = dict(attn_mask=live)
+        else:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            kw = dict(is_causal=True, enable_gqa=True)
+        out["library_ms"] = median_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+            reps=reps)
+        lib_err = ("" if S > 512 else "; sdpa vs plain " + format(float((
+            F.scaled_dot_product_attention(qt, kt, vt, **kw).transpose(1, 2)
+            .float() - plain(None).float()).abs().max()), ".3g"))
+        out["live_pairs"] = pairs = int(live.sum())  # of one head
         nbytes = (2 * B * S * H * D + 2 * B * S * KVH * D) * q.element_size()
-        nops = 4 * D * (S * (S + 1) // 2) * B * H  # live causal pairs
+        nops = 4 * D * pairs * B * H
         b_ms = nbytes / bw * 1e3
 
         def bound(o_ms):
@@ -490,14 +593,21 @@ def check_flash(torch, rates):
             out["cuda_core_bound_ms"] = bound(nops / f32_rate * 1e3)[0]
         out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
         log(f"  flash_attention_fwd {str(dtype).removeprefix('torch.')} at "
-            f"B,H,KVH,S,D={shape} causal: max_abs_err "
-            f"{out['max_abs_err']:.3g} (sdpa vs plain {lib_err:.3g}), kernel "
+            f"B,H,KVH,S,D={shape} causal{f' {mask}' if mask else ''}: max_abs_err "
+            f"{out['max_abs_err']:.3g}, worst (row, head) "
+            f"{out['max_row_rel_err']:.3g} of its norm (tol {row_tol}"
+            + "".join(f"; plain with {name}: {err:.3g}"
+                      for name, err in shifted.items())
+            + f"{lib_err}){' per kv head' if S > 512 else ''}; kernel "
             f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, sdpa "
             f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
             f"({out['bound_by']}: {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
-            f"GFLOP; {out['pct_of_bound']:.0f}% of it)"
+            f"GFLOP over {pairs:,} live pairs a head; "
+            f"{out['pct_of_bound']:.0f}% of it)"
             + (f", CUDA-core bound {out['cuda_core_bound_ms']:.4f} ms"
                if "cuda_core_bound_ms" in out else ""))
+        del q, k, v, got, qt, kt, vt, live
+        torch.cuda.empty_cache()
         return out
 
     B, H, KVH, S, D = SERVE_SHAPE
@@ -512,6 +622,13 @@ def check_flash(torch, rates):
         B, H, KVH, S, D = shape
         entry[f"f32_eval_{phase}"] = {"shape_bshd": [B, S, H, KVH, D],
                                       **timed(shape, torch.float32)}
+    entry["moe_admits"] = {}
+    for arch in MOE_SERVE:
+        shape, mask = moe_admit(arch)
+        B, H, KVH, S, D = shape
+        entry["moe_admits"][arch] = {"shape_bshd": [B, S, H, KVH, D],
+                                     "mask": mask,
+                                     **timed(shape, torch.bfloat16, mask)}
     return entry
 
 
@@ -1812,20 +1929,22 @@ def serving_path(torch):
     return launches, stats
 
 
-def profile_serving(torch, model, params):
-    """Phase 6b: where a decode tick and an admit spend their time. One
-    ``torch.profiler`` window over 3 pooled decode steps (capacity 8, every
-    row at position 512 of a 577-position cache) and one over 1 prefill of
-    512 tokens; device busy share = the union of kernel intervals over the
-    window's wall time, closed by ``synchronize()``."""
+def profile_serving(torch, model, params, capacity=8, max_len=577,
+                    tick_reps=3):
+    """Phase 6b (and 6m): where a decode tick and an admit spend their
+    time. One ``torch.profiler`` window over ``tick_reps`` pooled decode
+    steps (``capacity`` rows, every row at position 512 of a ``max_len``
+    cache) and one over 1 prefill of 512 tokens; device busy share = the
+    union of kernel intervals over the window's wall time, closed by
+    ``synchronize()``."""
     dev = torch.device("cuda")
-    cache = model.init_cache(8, 577, dev)
-    tok = torch.zeros(8, 1, dtype=torch.long, device=dev)
-    idx = torch.full((8, 1), 512, device=dev)
+    cache = model.init_cache(capacity, max_len, dev)
+    tok = torch.zeros(capacity, 1, dtype=torch.long, device=dev)
+    idx = torch.full((capacity, 1), 512, device=dev)
     prompt = torch.zeros(1, 512, dtype=torch.long, device=dev)
     scratch = model.init_cache(1, 512, dev)
     calls = {
-        "decode tick": (3, lambda: model.decode_step(
+        "decode tick": (tick_reps, lambda: model.decode_step(
             params, {"tokens": tok}, cache, idx)),
         "admit prefill": (1, lambda: model.prefill(
             params, {"tokens": prompt}, scratch)),
@@ -1877,19 +1996,25 @@ def profile_window(torch, name, fn, reps):
 
 
 def serving_device_parity(torch, arch="qwen3-4b", S=512):
-    """Phase 7 (and 7b (b)): the serving path on the card and on the CPU
-    (plain versions) from the same params: ``arch`` at full width cut to 2
-    layers, float32. Prefill S tokens into an S-position cache (as an
-    admit: qwen3-4b at 512 takes the flash branch, the kernel on the card;
-    stablelm-3b and h2o-danube-1.8b at 1024 take ``blockwise_attention``,
-    once per layer on each device), adopt the cache into S + 4 positions,
-    then 4 greedy decode steps fed the CPU's tokens. Logits agree within
-    1e-3 of the logit scale (max |logit|): float32 matmuls in other
-    summation orders over d_model 2560 and d_ff 6912-9728."""
+    """Phase 7 (and 7b (b), 7m): the serving path on the card and on the
+    CPU (plain versions) from the same params: ``arch`` at full width cut
+    to 2 layers, float32 (moonshot-v1-16b-a3b: its dense layer and one MoE
+    layer). Prefill S tokens into an S-position cache (as an admit:
+    qwen3-4b and moonshot at 512 take the flash branch, the kernel once a
+    layer on the card; stablelm-3b and h2o-danube-1.8b at 1024 take
+    ``blockwise_attention``, once per layer on each device), adopt the
+    cache into S + 4 positions, then 4 greedy decode steps fed the CPU's
+    tokens. Logits agree within 1e-3 of the logit scale (max |logit|):
+    float32 matmuls in other summation orders over d_model 2048-2560 and
+    d_ff 6912-11264. An MoE model's routers choose the same experts on
+    both devices (``check_routes``). Returns the worst relative error and
+    the card's launch counts."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models.registry import build_model
+    from repro_torch.nn import moe
     from repro_torch.nn.param import init_tree, tree_from_leaves, tree_leaves
 
     cfg = get_config(arch).replace(num_layers=2, dtype="float32",
@@ -1900,15 +2025,20 @@ def serving_device_parity(torch, arch="qwen3-4b", S=512):
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S))
     outs = {}
     feed = []
-    bw = BlockwiseWatch()
+    bw, _ = blockwise_watch()
+    routes = {}
     for dev, params in (("cpu", cpu), ("cuda", card)):
-        with torch.no_grad(), bw:
+        reset_launch_counts()
+        rw = CallWatch(moe, "route", lambda a, kw, out: (
+            out[0].cpu(), out[2].cpu()))
+        with torch.no_grad(), bw, rw:
             batch = {"tokens": torch.as_tensor(toks, device=dev)}
             logits, scratch = model.prefill(params, batch,
                                             model.init_cache(1, S, dev))
             cache = model.init_cache(1, S + 4, dev)
-            for key in ("k", "v"):
-                cache["dense"][key][:, :, :S] = scratch["dense"][key]
+            for part in cache:
+                for key in ("k", "v"):
+                    cache[part][key][:, :, :S] = scratch[part][key]
             steps = [logits.float().cpu()]
             for i in range(4):
                 if dev == "cpu":
@@ -1917,6 +2047,8 @@ def serving_device_parity(torch, arch="qwen3-4b", S=512):
                     params, {"tokens": feed[i].to(dev)}, cache, S + i)
                 steps.append(logits.float().cpu())
         outs[dev] = steps
+        routes[dev] = rw.calls
+    launches = _launches(torch)
     worst = 0.0
     for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
         scale = float(b.abs().max())
@@ -1928,43 +2060,84 @@ def serving_device_parity(torch, arch="qwen3-4b", S=512):
         log(f"  {arch} {'prefill' if i == 0 else f'decode {i}'}: max abs "
             f"err {err:.3g} (logit scale {scale:.3g})")
     want_calls = 2 * cfg.num_layers if S >= 1024 else 0
-    if bw.calls != want_calls:
-        raise AssertionError(f"{arch}: {bw.calls} blockwise calls, "
+    if len(bw.calls) != want_calls:
+        raise AssertionError(f"{arch}: {len(bw.calls)} blockwise calls, "
                              f"expected {want_calls}")
-    return worst
+    flash = S % 128 == 0 and cfg.hd in (64, 128) and cfg.rotary_pct == 1.0
+    want = {n: 0 for n in launches}
+    want["flash_attention_fwd"] = cfg.num_layers if flash else 0
+    if launches != want:
+        raise AssertionError(f"{arch} card launches {launches}, expected "
+                             f"{want}")
+    if cfg.moe:
+        flips = check_routes(torch, routes["cuda"], routes["cpu"],
+                             model.n_moe * 5)
+        log(f"  {arch}: {len(routes['cuda'])} router calls, chosen experts "
+            f"card = CPU except {flips} token(s) within the devices' "
+            "disagreement")
+    return worst, launches
 
 
-class BlockwiseWatch:
-    """Counts ``blockwise_attention`` calls made by the attention layer and
-    the per-block-pair steps (``nn/flash.py::kv_step``) inside them, by
-    wrapping both names where they are looked up, for the ``with`` block."""
+def check_routes(torch, card, cpu, n_calls):
+    """Phase 7m: the experts each router call chose on the card, in order,
+    equal the CPU's. Where a token's choice differs, the phase proves the
+    router margin there is below what the two devices' float32 arithmetic
+    disagrees by: the CPU's probabilities of the card's choice equal the
+    CPU's own top-k probabilities within twice the largest card-vs-CPU
+    difference of that token's probabilities. Returns the tokens that
+    differ."""
+    if len(card) != n_calls or len(cpu) != n_calls:
+        raise AssertionError(f"{len(card)} / {len(cpu)} router calls, "
+                             f"expected {n_calls}")
+    flips = 0
+    for i, ((p_card, e_card), (p_cpu, e_cpu)) in enumerate(zip(card, cpu)):
+        differ = (e_card != e_cpu).any(-1)  # (B, S)
+        for b, t in differ.nonzero().tolist():
+            delta = float((p_card[b, t] - p_cpu[b, t]).abs().max())
+            ours = p_cpu[b, t, e_card[b, t]]
+            best = p_cpu[b, t].sort(descending=True).values[:ours.numel()]
+            gap = float((best - ours).abs().max())
+            if gap > 2 * delta:
+                raise AssertionError(
+                    f"router call {i}, token {t}: card chose "
+                    f"{e_card[b, t].tolist()}, CPU {e_cpu[b, t].tolist()}; "
+                    f"probability gap {gap:.3g} > 2 x {delta:.3g}")
+            flips += 1
+    return flips
 
-    def __init__(self):
-        self.calls = self.pairs = 0
+
+class CallWatch:
+    """Records every call of ``module.name`` made inside the ``with`` block
+    (the name wrapped where it is looked up): ``record(args, kwargs,
+    out)`` of each call, in order, in ``calls``."""
+
+    def __init__(self, module, name, record):
+        self.module, self.name, self.record = module, name, record
+        self.calls = []
 
     def __enter__(self):
-        from repro_torch.nn import flash, layers
+        fn = self._saved = getattr(self.module, self.name)
 
-        self._saved = [(layers, "blockwise_attention",
-                        layers.blockwise_attention),
-                       (flash, "kv_step", flash.kv_step)]
-        (_, _, attn), (_, _, step) = self._saved
+        def watched(*a, **kw):
+            out = fn(*a, **kw)
+            self.calls.append(self.record(a, kw, out))
+            return out
 
-        def counted_attn(*a, **kw):
-            self.calls += 1
-            return attn(*a, **kw)
-
-        def counted_step(*a, **kw):
-            self.pairs += 1
-            return step(*a, **kw)
-
-        layers.blockwise_attention = counted_attn
-        flash.kv_step = counted_step
+        setattr(self.module, self.name, watched)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
+        setattr(self.module, self.name, self._saved)
+
+
+def blockwise_watch():
+    """Two ``CallWatch``es: the attention layer's ``blockwise_attention``
+    calls and the per-block-pair steps (``nn/flash.py::kv_step``) inside
+    them; their counts are ``len(.calls)``."""
+    from repro_torch.nn import flash, layers
+
+    return (CallWatch(layers, "blockwise_attention", lambda a, kw, out: None),
+            CallWatch(flash, "kv_step", lambda a, kw, out: None))
 
 
 def wall_ms(torch, fn, reps: int = 5) -> float:
@@ -2062,23 +2235,25 @@ def dense_family_path(torch, arch: str):
                               watch=None, **run)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with BlockwiseWatch() as bw:
+    bw, bp = blockwise_watch()
+    with bw, bp:
         t0 = time.perf_counter()
         sched, results = serve_continuous(lm, params, args, cfg.vocab_size)
         wall = time.perf_counter() - t0
+    n_calls, n_pairs = len(bw.calls), len(bp.calls)
     launches = {n: x.launches for n, x in kernels().items()}
     stats = _served_stats(torch, sched, results, lm, wall, run["traffic"],
                           run["steps"])
     admits = stats["admits"]
     if any(launches.values()):
         raise AssertionError(f"{arch} serving launched {launches}")
-    if bw.calls != admits * cfg.num_layers or bw.pairs != bw.calls * pairs:
+    if n_calls != admits * cfg.num_layers or n_pairs != n_calls * pairs:
         raise AssertionError(
-            f"{arch}: {bw.calls} blockwise calls, {bw.pairs} block pairs; "
+            f"{arch}: {n_calls} blockwise calls, {n_pairs} block pairs; "
             f"expected {admits} admits x {cfg.num_layers} layers, {pairs} "
             "pairs each")
     n_blocks = (run["prompt_len"] // 512) ** 2
-    stats.update({"params": n_params, "blockwise_calls": bw.calls,
+    stats.update({"params": n_params, "blockwise_calls": n_calls,
                   "live_block_pairs_per_call": pairs,
                   "block_pairs_per_call": n_blocks,
                   "flash_launches": launches["flash_attention_fwd"],
@@ -2091,7 +2266,7 @@ def dense_family_path(torch, arch: str):
         f"{stats['latency_ms_p50']:.1f} / p99 {stats['latency_ms_p99']:.1f} "
         f"ms; {stats['ticks']} decode ticks of median "
         f"{stats['decode_tick_ms_median']:.2f} ms, admit median "
-        f"{stats['prefill_ms_median']:.2f} ms; blockwise calls {bw.calls} = "
+        f"{stats['prefill_ms_median']:.2f} ms; blockwise calls {n_calls} = "
         f"{admits} admits x {cfg.num_layers} layers, {pairs} of {n_blocks} "
         f"block pairs each; flash launches 0; KV cache "
         f"{stats['kv_cache_bytes']:,} B; peak memory "
@@ -2102,11 +2277,12 @@ def dense_family_path(torch, arch: str):
         static = argparse.Namespace(batch=8, prompt_len=512, steps=32,
                                     eos_id=None)
         reset_launch_counts()
-        with BlockwiseWatch() as bw:
+        bw, _ = blockwise_watch()
+        with bw:
             tok_s = serve_static(lm, params, static, cfg.vocab_size, dev)
         moved = {n: x.launches for n, x in kernels().items()}
         if any(moved.values()) or bw.calls:
-            raise AssertionError(f"static batch: {moved}, {bw.calls} "
+            raise AssertionError(f"static batch: {moved}, {len(bw.calls)} "
                                  "blockwise calls")
         if not bool(lm.finite):
             raise AssertionError("a non-finite logit in the static batch")
@@ -2128,6 +2304,144 @@ def dense_family_path(torch, arch: str):
             torch, f"{arch} admit prefill ({S} tokens, blockwise)",
             lambda: model.prefill(params, {"tokens": prompt}, scratch), 1)
     del params, scratch, sched, lm
+    torch.cuda.empty_cache()
+    return stats
+
+
+# phases 6m and 6x: (layers kept (None: all), params, continuous run,
+# profiled); bf16, weights drawn on the card
+MOE_SERVE = {
+    "moonshot-v1-16b-a3b": (None, 28_386_592_768, dict(
+        capacity=4, prompt_len=512, steps=32, traffic=8), True),
+    "mixtral-8x22b": (2, 5_410_781_184, dict(
+        capacity=2, prompt_len=8192, steps=8, traffic=2), False),
+    "llama4-scout-17b-a16e": (2, 6_473_180_160, dict(
+        capacity=2, prompt_len=12288, steps=8, traffic=2), False),
+}
+
+
+def moe_admit(arch: str):
+    """K5's call on an admit of phases 6m / 6x: (B, H, KVH, S, D) and the
+    mask the config passes (its window or its chunk; causal always)."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    mask = {key: val for key, val in (("window", cfg.sliding_window),
+                                      ("chunk", cfg.attention_chunk)) if val}
+    return (1, cfg.num_heads, cfg.kv_heads, MOE_SERVE[arch][2]["prompt_len"],
+            cfg.hd), mask
+
+
+def moe_serving_path(torch, arch: str):
+    """Phases 6m / 6x: one MoE configuration through ``launch/serve.py``'s
+    ``serve_continuous`` in bf16, random weights drawn on the card from a
+    seed: moonshot-v1-16b-a3b at full size (6m), mixtral-8x22b and
+    llama4-scout-17b-a16e at full width cut to 2 layers (6x). Counts zeroed
+    just before the run and read just after: the flash kernel (K5) once a
+    layer per admit and nothing else, every K5 call at the admit's shape
+    (1, prefill_len) with the config's window or chunk passed, the MoE
+    layer (``nn/moe.py`` ``apply_moe``) once per MoE layer per admit and
+    per decode tick, every logit finite. 6m adds a ``torch.profiler``
+    window over one admit and one tick. Frees everything it drew before
+    it returns."""
+    import argparse
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn import layers, moe
+    from repro_torch.nn.param import init_tree, param_count
+
+    n_layers, n_want, run, profiled = MOE_SERVE[arch]
+    mask = moe_admit(arch)[1]
+    gc.collect()  # earlier phases' engines sit in reference cycles
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(num_layers=n_layers)
+    model = build_model(cfg)
+    n_params = param_count(model.spec)
+    if n_params != n_want:
+        raise AssertionError(f"{arch} has {n_params:,} params")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_tree(torch.Generator(dev).manual_seed(0), model.spec, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  {arch}: {n_params:,} params ({cfg.num_layers} layers: "
+        f"{model.n_dense} dense + {model.n_moe} MoE; d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.kv_heads} heads of {cfg.hd}, {cfg.num_experts}"
+        f" experts top-{cfg.top_k} of d_ff {cfg.e_dff}, "
+        f"{cfg.num_shared_experts} shared, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window}, chunk {cfg.attention_chunk}, {cfg.dtype}) "
+        f"drawn on the card in {init_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    lm = WatchedLM(torch, model)
+    args = argparse.Namespace(eos_id=None, poll_every=8, batch=8,
+                              watch=None, **run)
+    reset_launch_counts()
+    fw = CallWatch(layers, "flash_attention_bshd", lambda a, kw, out: (
+        tuple(a[0].shape), tuple(a[1].shape), a[0].dtype,
+        kw.get("causal"), kw.get("window"), kw.get("chunk")))
+    mw = CallWatch(moe, "apply_moe", lambda a, kw, out: tuple(
+        a[1].shape[:2]))
+    with fw, mw:
+        t0 = time.perf_counter()
+        sched, results = serve_continuous(lm, params, args, cfg.vocab_size)
+        wall = time.perf_counter() - t0
+    launches = _launches(torch)
+    stats = _served_stats(torch, sched, results, lm, wall, run["traffic"],
+                          run["steps"])
+    admits, ticks = stats["admits"], stats["ticks"]
+    S, H, KVH, D = run["prompt_len"], cfg.num_heads, cfg.kv_heads, cfg.hd
+    want = {n: 0 for n in launches}
+    want["flash_attention_fwd"] = admits * cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"{arch} serving launches {launches}, "
+                             f"expected {want}")
+    call = ((1, S, H, D), (1, S, KVH, D), torch.bfloat16, True,
+            mask.get("window"), mask.get("chunk"))
+    if fw.calls != [call] * (admits * cfg.num_layers):
+        raise AssertionError(f"{arch}: K5 calls {sorted(set(fw.calls))}, "
+                             f"expected {admits * cfg.num_layers} x {call}")
+    moe_calls = {k: mw.calls.count(k) for k in set(mw.calls)}
+    want_moe = {(1, S): admits * model.n_moe,
+                (run["capacity"], 1): ticks * model.n_moe}
+    if moe_calls != want_moe:
+        raise AssertionError(f"{arch}: apply_moe calls by (B, S) "
+                             f"{moe_calls}, expected {want_moe}")
+    stats.update({"params": n_params, "layers": cfg.num_layers,
+                  "init_s": init_s, "launches": launches,
+                  "flash_call": [list(call[0]), list(call[1]), "bfloat16",
+                                 *call[3:]],
+                  "apply_moe_calls": len(mw.calls),
+                  **{k: run[k] for k in ("capacity", "prompt_len", "steps",
+                                         "traffic")}})
+    log(f"  continuous: {stats['served']} requests, {stats['tokens']} "
+        f"tokens, {stats['tok_s']:.1f} tok/s over {sched.vnow:.3f} s virtual "
+        f"({wall:.3f} s wall), TTFT p50 {stats['ttft_ms_p50']:.1f} / p99 "
+        f"{stats['ttft_ms_p99']:.1f} ms, latency p50 "
+        f"{stats['latency_ms_p50']:.1f} / p99 {stats['latency_ms_p99']:.1f} "
+        f"ms; {ticks} decode ticks of median "
+        f"{stats['decode_tick_ms_median']:.2f} ms, admit median "
+        f"{stats['prefill_ms_median']:.2f} ms; K5 launches "
+        f"{launches['flash_attention_fwd']} = {admits} admits x "
+        f"{cfg.num_layers} layers at (1, {S}) {mask or 'causal'}; apply_moe "
+        f"{len(mw.calls)} = ({admits} admits + {ticks} ticks) x "
+        f"{model.n_moe}; KV cache {stats['kv_cache_bytes']:,} B; peak "
+        f"memory {stats['max_memory_allocated_gb']:.2f} GB")
+    del sched, results, lm
+    if profiled:
+        log(f"[6m] profiler: one decode tick (capacity {run['capacity']}) "
+            "and one admit's prefill")
+        stats["profile"] = profile_serving(
+            torch, model, params, capacity=run["capacity"],
+            max_len=S + run["steps"] + 1, tick_reps=1)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return stats
 
@@ -2161,7 +2475,8 @@ def blockwise_devices(torch):
             k, v = (torch.randn(B, S, KVH, D, generator=gen,
                                 device=dev).to(dtype) for _ in range(2))
             name = f"{arch}/{str(dtype).removeprefix('torch.')}"
-            with BlockwiseWatch() as bw:
+            _, bp = blockwise_watch()
+            with bp:
                 got = blockwise_attention(q, k, v, **kw)
             worst = 0.0
             if arch == "h2o-danube-1.8b":
@@ -2183,12 +2498,12 @@ def blockwise_devices(torch):
             lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask), reps=10)
             out[name] = {"shape_bshkd": [B, S, H, KVH, D], "window": window,
-                         "block_pairs": bw.pairs, "ms": ms,
+                         "block_pairs": len(bp.calls), "ms": ms,
                          "sdpa_ms": lib_ms}
             if arch == "h2o-danube-1.8b":
                 out[name]["max_abs_err_vs_naive"] = worst
             log(f"  blockwise {name} B,S,H,KVH,D={B, S, H, KVH, D} window "
-                f"{window}: {bw.pairs} live block pairs, "
+                f"{window}: {len(bp.calls)} live block pairs, "
                 + (f"max abs err vs naive {worst:.3g} (tol {tol}), "
                    if arch == "h2o-danube-1.8b" else "")
                 + f"{ms:.2f} ms a call (wall), sdpa with the same mask "
@@ -2361,16 +2676,29 @@ def train_lm_elastic_path(torch):
     return stats
 
 
-def lm_device_parity(torch):
-    """Phase 8c: LM training on the card and on the CPU (plain versions)
-    from the same params and probes, 3 rounds, AdaHessian, k=2, τ=2:
-    stablelm-3b SMOKE with fused comm, qwen3-4b SMOKE with head_dim 64 at
-    128 tokens with sequential comm (its eval is the flash kernel's shape:
-    K5 on the card, the plain version on the CPU), both in float32 (the
-    CPU tests' parity configs). Master and workers agree per leaf
-    (``_leaf_parity``: norm-wise within 1e-3, elementwise within rtol 1e-4
-    plus 2% of the leaf's scale; the ROADMAP's rule), round losses and the
-    held-out eval loss at rtol 1e-4."""
+# phase 8c: (arch, config changes, comm, tokens), τ=2; phase 8e: the MoE
+# family, τ=1
+LM_PARITY = (("stablelm-3b", {}, "fused", 16),
+             ("qwen3-4b", {"head_dim": 64}, "sequential", 128))
+MOE_LM_PARITY = (("moonshot-v1-16b-a3b", {}, "fused", 128),
+                 ("mixtral-8x22b", {}, "sequential", 128))
+
+
+def lm_device_parity(torch, cases=LM_PARITY, tau=2):
+    """Phase 8c (and 8e): LM training on the card and on the CPU (plain
+    versions) from the same params and probes, 3 rounds, AdaHessian,
+    DEAHES-O (dynamic weighting, overlap), k=2. 8c, τ=2: stablelm-3b SMOKE
+    with fused comm, qwen3-4b SMOKE with head_dim 64 at 128 tokens with
+    sequential comm (its eval is the flash kernel's shape: K5 on the card,
+    the plain version on the CPU). 8e, τ=1, 128 tokens: moonshot-smoke
+    (fused) and mixtral-smoke (sequential), the loss with the router aux,
+    the capacity dispatch under the local phase's ``vmap(jvp(grad))``.
+    All in float32 (the CPU tests' parity configs). Master and workers
+    agree per leaf (``_leaf_parity``: norm-wise within 1e-3, elementwise
+    within rtol 1e-4 plus 2% of the leaf's scale; the ROADMAP's rule),
+    round losses and the held-out eval loss at rtol 1e-4. Launches: K1
+    once a τ-step, K2 once a round (fused) or K3 once a worker a round
+    (sequential), K5 once a layer an eval where the eval is its shape."""
     import numpy as np
 
     from repro_torch.api.session import ElasticSession, RunSpec
@@ -2381,8 +2709,6 @@ def lm_device_parity(torch):
     from repro_torch.nn.param import init_tree
 
     out = {}
-    cases = (("stablelm-3b", {}, "fused", 16),
-             ("qwen3-4b", {"head_dim": 64}, "sequential", 128))
     for arch, extra, comm, seq in cases:
         cfg = get_config(arch, smoke=True).replace(
             dtype="float32", param_dtype="float32", **extra)
@@ -2400,7 +2726,7 @@ def lm_device_parity(torch):
         for device in ("cuda", "cpu"):
             spec = RunSpec(
                 model_cfg=cfg, optimizer=OptimizerConfig(name="adahessian"),
-                elastic=ElasticConfig(num_workers=2, tau=2, comm_mode=comm),
+                elastic=ElasticConfig(num_workers=2, tau=tau, comm_mode=comm),
                 rounds=3, batch_size=2, seq_len=seq, n_tokens=4000,
                 eval_every=1, device=device)
             sess = ElasticSession(spec, params=params)
@@ -2425,7 +2751,7 @@ def lm_device_parity(torch):
                     raise AssertionError(f"{arch} round {a.round} {key}: "
                                          f"card {x} vs CPU {y}")
         want = {n: 0 for n in lc}
-        want["adahessian_update_batched"] = 3 * 2
+        want["adahessian_update_batched"] = 3 * tau
         want["elastic_update_batched" if comm == "fused"
              else "elastic_update"] = 3 if comm == "fused" else 3 * 2
         if seq % 128 == 0 and cfg.hd in (64, 128):
@@ -2437,8 +2763,10 @@ def lm_device_parity(torch):
             f"workers worst leaf norm-wise {norm:.3g}, max abs {worst:.3g}; "
             f"eval loss {rc[-1].eval_loss:.6f} / {rp[-1].eval_loss:.6f}; "
             f"card launches {lc}")
-        out[cfg.name] = {"comm": comm, "seq_len": seq,
+        out[cfg.name] = {"comm": comm, "seq_len": seq, "tau": tau,
                          "worst_norm_rel": norm, "max_abs": worst,
+                         "losses_card": [r.loss for r in rc],
+                         "losses_cpu": [r.loss for r in rp],
                          "launches": lc}
     return out
 
@@ -2841,6 +3169,17 @@ def main() -> int:
         t0 = time.perf_counter()
         family[arch] = dense_family_path(torch, arch)
         family[arch]["phase_s"] = time.perf_counter() - t0
+    moe = {}
+    for phase, arch in (("6m", "moonshot-v1-16b-a3b"),
+                        ("6x", "mixtral-8x22b"),
+                        ("6x", "llama4-scout-17b-a16e")):
+        log(f"[{phase}] {arch} "
+            + ("at full size" if phase == "6m" else
+               "at full width, 2 layers")
+            + " through launch/serve.py (K5 on every admit)")
+        t0 = time.perf_counter()
+        moe[arch] = moe_serving_path(torch, arch)
+        moe[arch]["phase_s"] = time.perf_counter() - t0
     lm = {}
     log(f"[8a] LM training at full width: qwen3-4b width, {HOTSWAP_LAYERS} "
         "layers, float32, ElasticSession on the card")
@@ -2858,15 +3197,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[7] serving card vs CPU: qwen3-4b width, 2 layers, float32")
-    serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)
+    serve_stats["card_vs_cpu_rel_err"] = serving_device_parity(torch)[0]
     log("[7b] blockwise attention on the card vs naive; stablelm-3b and "
         "h2o-danube-1.8b card vs CPU at 1024 tokens")
     t0 = time.perf_counter()
     family["blockwise"] = blockwise_devices(torch)
     for arch in ("stablelm-3b", "h2o-danube-1.8b"):
         family[arch]["card_vs_cpu_rel_err"] = serving_device_parity(
-            torch, arch, 1024)
+            torch, arch, 1024)[0]
     family["phase_7b_s"] = time.perf_counter() - t0
+    log("[7m] serving card vs CPU: moonshot-v1-16b-a3b width, 2 layers (1 "
+        "dense + 1 MoE), float32")
+    t0 = time.perf_counter()
+    rel, moe["7m_launches"] = serving_device_parity(
+        torch, "moonshot-v1-16b-a3b", 512)
+    moe["moonshot-v1-16b-a3b"]["card_vs_cpu_rel_err"] = rel
+    moe["phase_7m_s"] = time.perf_counter() - t0
 
     log("[8b] train_lm_elastic --preset 100m, k=4, tau=2, 3 rounds")
     t0 = time.perf_counter()
@@ -2881,14 +3227,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lm["8d"] = lm_gradients(torch)
     lm["8d"]["phase_s"] = time.perf_counter() - t0
+    log("[8e] MoE LM training card vs CPU at SMOKE, carried params and "
+        "probes")
+    t0 = time.perf_counter()
+    lm["8e"] = lm_device_parity(torch, MOE_LM_PARITY, tau=1)
+    lm["8e"]["phase_s"] = time.perf_counter() - t0
     for entry in table:
         name = entry["name"]
         entry["hotswap_launches"] = swap_counts[name]
         entry["lm_training_launches"] = {
             "8a": lm["8a"]["launches"][name], "8b": lm["8b"]["launches"][name],
-            **{f"8c {arch}": run["launches"][name]
-               for arch, run in lm["8c"].items()
+            **{f"{phase} {arch}": run["launches"][name]
+               for phase in ("8c", "8e")
+               for arch, run in lm[phase].items()
                if isinstance(run, dict)}}
+        entry["moe_launches"] = {
+            **{f"{'6m' if arch.startswith('moonshot') else '6x'} {arch}":
+               moe[arch]["launches"][name] for arch in MOE_SERVE},
+            "7m": moe["7m_launches"][name]}
 
     log(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train_cli": cli}))
@@ -2900,6 +3256,7 @@ def main() -> int:
     print(json.dumps({"dense_family": family}))
     print(json.dumps({"hotswap": hotswap}))
     print(json.dumps({"lm_training": lm}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 Field names, defaults and ``__post_init__`` validation mirror
 ``repro.configs.base`` so that a configuration means the same run in both
-packages. ``ModelConfig`` keeps the fields the paper's CNN and the dense
-decoder family read (the MoE fields only so that ``DecoderLM`` can refuse
-an MoE config by name); ``use_pallas`` is not carried across — the
+packages. ``ModelConfig`` keeps the fields the paper's CNN and the
+decoder families the port runs (dense and mixture-of-experts) read;
+``use_pallas`` is not carried across — the
 device of the tensors picks kernel or plain version. ``get_config``
 resolves the ported architectures and refuses every other by name.
 
@@ -29,7 +29,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "cnn" | "dense" run in the port
+    family: str  # "cnn" | "dense" | "moe" run in the port
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,7 +52,7 @@ class ModelConfig:
     attention_chunk: Optional[int] = None
     # embeddings
     tie_embeddings: bool = False
-    # MoE (not ported: DecoderLM refuses a config with experts)
+    # MoE (nn/moe.py: routed experts, shared experts, first dense layers)
     num_experts: int = 0
     top_k: int = 1
     num_shared_experts: int = 0
@@ -84,6 +84,10 @@ class ModelConfig:
     @property
     def moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def e_dff(self) -> int:
+        return self.expert_d_ff or self.d_ff
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -280,7 +284,9 @@ class OptimizerConfig:
 
 
 ARCH_ALIASES = {"paper-cnn": "paper_cnn"}
-PORTED_ARCHS = ("paper_cnn", "qwen3_4b", "stablelm_3b", "h2o_danube_1_8b")
+PORTED_ARCHS = ("paper_cnn", "qwen3_4b", "stablelm_3b", "h2o_danube_1_8b",
+                "mixtral_8x22b", "llama4_scout_17b_a16e",
+                "moonshot_v1_16b_a3b")
 
 
 def normalize_arch(arch: str) -> str:

@@ -8,7 +8,7 @@ from repro_torch.configs.base import ModelConfig, get_config
 def build_model(cfg_or_arch, smoke: bool = False):
     cfg = (cfg_or_arch if isinstance(cfg_or_arch, ModelConfig)
            else get_config(cfg_or_arch, smoke=smoke))
-    if cfg.family in ("dense", "moe"):  # DecoderLM refuses experts
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.dense import DecoderLM
 
         return DecoderLM(cfg)
@@ -18,4 +18,4 @@ def build_model(cfg_or_arch, smoke: bool = False):
         return PaperCNN(cfg)
     raise NotImplementedError(
         f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-        "PyTorch yet (ported: dense, cnn)")
+        "PyTorch yet (ported: dense, moe, cnn)")

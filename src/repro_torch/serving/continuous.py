@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.nn.param import tree_leaves
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 CACHE_BATCH_AXIS = 1  # (layers, batch, positions, kv heads, head dim)
 
 

@@ -155,11 +155,17 @@ def test_same_bad_elastic_configs_raise(kw):
 
 
 def test_get_config_refuses_lm_families():
-    """The ported archs resolve (paper-cnn; qwen3-4b, its SMOKE too); every
-    LM family still outside the port raises naming itself."""
+    """The ported archs resolve (paper-cnn; qwen3-4b, its SMOKE too; the
+    three MoE archs); every LM family still outside the port (hybrid,
+    rwkv6, encdec, vlm) raises naming itself."""
     assert tcfg.get_config("paper-cnn").name == "paper-cnn"
     assert tcfg.get_config("qwen3-4b").name == "qwen3-4b"
     assert tcfg.get_config("qwen3_4b", smoke=True).name == "qwen3-smoke"
-    for arch in ("mixtral-8x22b", "rwkv6-3b"):
+    for arch in ("mixtral-8x22b", "llama4-scout-17b-a16e",
+                 "moonshot-v1-16b-a3b"):
+        assert tcfg.get_config(arch).name == arch
+        assert tcfg.get_config(arch).family == "moe"
+    for arch in ("zamba2-7b", "rwkv6-3b", "seamless-m4t-large-v2",
+                 "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError, match=arch):
             tcfg.get_config(arch)

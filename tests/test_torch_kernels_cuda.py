@@ -167,7 +167,8 @@ def test_elastic_one_worker_kernel_matches_plain(cuda):
     (1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
     (1, 32, 8, 512, 128),   # qwen3-4b's prefill at 512 tokens
     (2, 32, 8, 128, 128),   # the LM eval of chip_smoke.py's 8a
-    (16, 12, 3, 512, 64)])  # the LM eval of train_lm_elastic's 100m preset
+    (16, 12, 3, 512, 64),   # the LM eval of train_lm_elastic's 100m preset
+    (1, 16, 16, 512, 128)])  # moonshot-v1-16b-a3b's admit at 512 tokens
 @pytest.mark.parametrize("mask", [
     dict(causal=True), dict(causal=False), dict(causal=True, window=17),
     dict(causal=True, window=96), dict(causal=True, chunk=64)])

@@ -303,13 +303,15 @@ def test_loss_matches_reference():
 
 
 def test_unported_families_raise_by_name():
-    """MoE, M-RoPE and the other families raise by name; layernorm, the
-    gelu MLPs and untied unembeddings build (tests/test_torch_dense_family.py
-    holds them to the reference)."""
-    with pytest.raises(NotImplementedError, match="nn/moe.py"):
-        tbuild(tget("qwen3_4b", smoke=True).replace(num_experts=4))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tbuild(tget("qwen3_4b", smoke=True).replace(family="hybrid"))
+    """M-RoPE and the families outside the port (hybrid, rwkv, encdec,
+    vlm) raise by name; experts build (tests/test_torch_moe_lm.py holds
+    them to the reference), and so do layernorm, the gelu MLPs and untied
+    unembeddings (tests/test_torch_dense_family.py)."""
+    moe = tbuild(tget("qwen3_4b", smoke=True).replace(num_experts=4))
+    assert ("moe_layers", "moe", "router") in dict(tree_leaves(moe.spec))
+    for family in ("hybrid", "rwkv", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match=family):
+            tbuild(tget("qwen3_4b", smoke=True).replace(family=family))
     smoke = tget("qwen3_4b", smoke=True)
     with pytest.raises(NotImplementedError, match="rope_mode='mrope'"):
         tbuild(smoke.replace(rope_mode="mrope"))

@@ -67,10 +67,10 @@ def _kw(arch, opt, comm, pkg):
 
 
 @functools.lru_cache(maxsize=None)
-def reference(case):
+def reference_run(arch, opt, comm):
     """The reference session's initial master, its (τ, k, n) probes, its
     records and state after every round, and its final ``evaluate()``."""
-    sess = RSession(RSpec(**_kw(*CASES[case], "ref")))
+    sess = RSession(RSpec(**_kw(arch, opt, comm, "ref")))
     params0 = jax.device_get(sess.state["master"])
     flat = jax.jit(lambda key: jnp.concatenate(
         [x.reshape(-1) for x in jax.tree.leaves(
@@ -87,13 +87,13 @@ def reference(case):
 
 
 @functools.lru_cache(maxsize=None)
-def port(case):
+def port_run(arch, opt, comm):
     """The port's session on the CPU from the reference's params and
     probes: its records, state after every round and final
     ``evaluate()``."""
-    params0, probes, _, _, _ = reference(case)
+    params0, probes, _, _, _ = reference_run(arch, opt, comm)
     sess = ElasticSession(
-        RunSpec(**_kw(*CASES[case], "port"), device="cpu"), params=params0,
+        RunSpec(**_kw(arch, opt, comm, "port"), device="cpu"), params=params0,
         probe_fn=lambda r, t, i: torch.from_numpy(probes[r][t, i])[None])
     records, states = [], []
     for _ in range(ROUNDS):
@@ -105,8 +105,8 @@ def port(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_lm_rounds_match_reference(case):
-    _, _, want_rec, want_state, _ = reference(case)
-    got_rec, got_state, _ = port(case)
+    _, _, want_rec, want_state, _ = reference_run(*CASES[case])
+    got_rec, got_state, _ = port_run(*CASES[case])
     assert [r.round for r in got_rec] == list(range(ROUNDS))
     for r, (got, want) in enumerate(zip(got_rec, want_rec)):
         np.testing.assert_array_equal(got.fail, want.fail)
@@ -123,8 +123,8 @@ def test_lm_rounds_match_reference(case):
 def test_lm_evaluate_matches_reference(case):
     """An LM has no accuracy: ``evaluate()`` is ``(loss, None)``, the
     master's held-out loss on the ``seed + 31`` batch."""
-    want_loss, want_acc = reference(case)[-1]
-    got_loss, got_acc = port(case)[-1]
+    want_loss, want_acc = reference_run(*CASES[case])[-1]
+    got_loss, got_acc = port_run(*CASES[case])[-1]
     assert got_acc is None and want_acc is None
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
 

@@ -125,8 +125,9 @@ def test_plain_session_matches_reference(opt):
 def test_plain_mode_forces_the_k1_control_and_refuses_lm_training():
     """Plain mode is the k=1 control for the CNN and for a dense LM alike
     (LM training is ported: an LM in plain mode runs one optimizer step a
-    round on the token stream, and its eval has no accuracy); an arch
-    the port lacks is still refused by name, in plain mode and not."""
+    round on the token stream, and its eval has no accuracy); an MoE arch
+    builds; an arch the port lacks is still refused by name, in plain mode
+    and not."""
     from repro_torch.configs.base import ElasticConfig, get_config
 
     sess = ElasticSession(RunSpec(
@@ -153,7 +154,11 @@ def test_plain_mode_forces_the_k1_control_and_refuses_lm_training():
     assert all(np.isfinite(r.loss) and r.eval_acc is None
                and np.isfinite(r.eval_loss) for r in recs)
     for plain in (True, False):
-        for arch in ("rwkv6-3b", "mixtral-8x22b"):
+        for arch in ("rwkv6-3b", "seamless-m4t-large-v2"):
             with pytest.raises(NotImplementedError, match=arch):
                 ElasticSession(RunSpec(arch=arch, smoke=True, device="cpu",
                                        **_plain_kw(plain=plain, rounds=1)))
+    moe = ElasticSession(RunSpec(
+        arch="moonshot-v1-16b-a3b", smoke=True, device="cpu",
+        **_plain_kw(rounds=1, batch_size=2, seq_len=16, n_tokens=2000)))
+    assert moe.ecfg.cap == 1 and moe.model.n_moe == 2

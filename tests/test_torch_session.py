@@ -346,12 +346,16 @@ def test_session_refuses_unported_features_by_name():
                               seq_len=16, n_tokens=2000))
     assert lm.state["workers"].shape == (3, lm.layout.n)
     assert sorted(lm._test) == ["targets", "tokens"]
-    for arch in ("rwkv6-3b", "mixtral-8x22b"):
+    for arch in ("rwkv6-3b", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match=arch):
             ElasticSession(_spec(arch=arch, smoke=True))
-    moe = tget("qwen3-4b", smoke=True).replace(num_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        ElasticSession(_spec(model_cfg=moe))
+    vlm = tget("qwen3-4b", smoke=True).replace(family="vlm")
+    with pytest.raises(NotImplementedError, match="'vlm'"):
+        ElasticSession(_spec(model_cfg=vlm))
+    moe = ElasticSession(_spec(arch="mixtral-8x22b", smoke=True,
+                               seq_len=16, n_tokens=2000))
+    assert moe.model.n_moe == 2 and "moe_layers.moe.router" in \
+        moe.layout.names
     with pytest.raises(ValueError, match="seq_len"):
         _spec(seq_len=0)
     with pytest.raises(ValueError, match="n_tokens"):
