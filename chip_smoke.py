@@ -27,7 +27,10 @@ failure:
    elementwise (2e-2) and each (query row, head) norm-wise (1e-2 of the
    row's norm; 1e-4 in float32), with plain versions whose window or
    chunk is one 64-key tile shorter or longer shown to fail that check,
-   and timed beside SDPA with the same mask;
+   and timed beside SDPA with the same mask; and at the new families'
+   calls, held and timed the same way: seamless-m4t-large-v2's encoder
+   (4, 16, 16, 512, 64) non-causal and qwen2-vl-7b's forward (1, 28, 4,
+   1152, 128) causal;
 4. §VI path: the paper's ``run_one`` for all six methods at k=4, τ=1,
    then DEAHES-O at k=8, τ=4 in both comm modes, with every launch count
    zeroed just before and read just after: each of the three training
@@ -118,6 +121,22 @@ failure:
    width cut to 2 layers, bf16, 2 requests of 8 new tokens at capacity 2:
    flash attention admits x 2 with the window or the chunk passed,
    ``apply_moe`` twice per admit and per tick, every logit finite;
+6e. seamless-m4t-large-v2 at full size (2,034,784,256 bf16 params, 24
+   encoder + 24 decoder layers) through ``ServeEngine.generate`` with
+   ``extra_batch={"src": ...}``: 4 requests of 128 prompt tokens and 512
+   frame embeddings (a numpy seed), 32 new tokens, two trials; counts
+   zeroed just before: K5 24 times a prefill, every call non-causal at
+   (4, 512, 16, 16, 64) (the encoder; the decoder's prefill, its
+   cross-attention and the ticks take ``gqa_attention``), nothing else;
+   tok/s, prefill and tick ms, peak GB; a profiler window over one
+   prefill and one tick;
+6v. qwen2-vl-7b at full size (7,615,487,488 bf16 params): (a)
+   ``launch/serve.py``'s static mode, text-only, 8 x 128 prompts, 32 new,
+   no K5; (b) one request of 1024 patch embeddings and 128 text tokens:
+   ``VLM.forward`` with K5 28 times causal at (1, 1152, 28, 4, 128) under
+   M-RoPE, then ``VLM.prefill`` and 32 ``decode_step``s at the global
+   index; forward's last logits within 0.06 of their norm of the
+   prefill's; a profiler window over one forward and one tick;
 8a. LM training (run before 6w, which uses its session): qwen3-4b at
    full width cut to 4 layers (792,681,984 float32 params) through
    ``RunSpec`` / ``ElasticSession``, AdaHessian, DEAHES-O, k=2, τ=1,
@@ -150,6 +169,13 @@ failure:
    card's prefill, logits within 1e-3 of the logit scale, and every
    router call's chosen experts equal on both devices (a differing token
    only where its router margin is within the devices' disagreement);
+7e. phase 7 for seamless-m4t-large-v2 at full width cut to 2 encoder + 2
+   decoder layers (128 frames, 128 tokens): K5 2 times non-causal in the
+   encoder, then causal in each decoder layer's self-attention and
+   non-causal in its cross-attention, on the card's prefill;
+7v. phase 7 for qwen2-vl-7b at full width cut to 2 layers, 64 patches
+   (a grid of 8) before 192 text tokens, M-RoPE sections (16, 24, 24):
+   K5 once a layer, causal;
 8b. ``repro_torch.examples.train_lm_elastic --preset 100m`` (the
    reference's preset for real hardware: 12 layers, head_dim 64, 512
    tokens, batch 16) at k=4, τ=2, 3 rounds, sequential comm, an eval
@@ -173,10 +199,11 @@ failure:
    ``{"hierarchy": ...}`` line, a ``{"sharded": ...}`` line, a
    ``{"dense_family": ...}`` line, a ``{"hotswap": ...}`` line, a
    ``{"lm_training": ...}`` line (8a-8e), a ``{"moe": ...}`` line (6m,
-   6x, 7m), a ``{"kernels": [...]}`` line (the batched kernels' entries
+   6x, 7m), a ``{"families": ...}`` line (6e, 6v, 7e, 7v), a
+   ``{"kernels": [...]}`` line (the batched kernels' entries
    with their launches on the hierarchy run and on each rank of the
-   sharded runs too, every entry with its launches in phase 6w, in 8a-8e
-   and in 6m, 6x and 7m), the
+   sharded runs too, every entry with its launches in phase 6w, in 8a-8e,
+   in 6m, 6x and 7m and in 6e, 6v, 7e and 7v), the
    ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device or the
@@ -217,6 +244,11 @@ EVAL_SHAPES = {"8a": (2, 32, 8, 128, 128), "8b": (16, 12, 3, 512, 64)}
 FLASH_SWEEP = [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
                (1, 4, 2, 256, 128), (1, 8, 2, 512, 64), SERVE_SHAPE,
                *EVAL_SHAPES.values()]
+# phases 6e and 6v (b): K5's calls on the new families' paths, bf16 (B, H,
+# KVH, S, D) and causal: seamless-m4t-large-v2's encoder (4 requests of
+# 512 frames) and qwen2-vl-7b's forward (1024 patches + 128 text tokens)
+FAMILY_FLASH = {"seamless encoder": ((4, 16, 16, 512, 64), False),
+                "qwen2-vl forward": ((1, 28, 4, 1152, 128), True)}
 SECTION_VI_KERNELS = ("adahessian_update_batched", "elastic_update_batched",
                       "elastic_update")
 FLASH_MASKS = [dict(causal=True), dict(causal=False),
@@ -488,9 +520,10 @@ def check_flash(torch, rates):
     # each (query row, head) of the timed calls: |got - want| / |want| over D
     row_tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
-    def timed(shape, dtype, mask=None):
-        """One causal call at ``shape`` with ``mask`` (a window or a chunk,
-        or none), held to plain elementwise at the tolerance above and each
+    def timed(shape, dtype, mask=None, causal=True):
+        """One call at ``shape``, causal or not, with ``mask`` (a window or
+        a chunk, or none), held to plain elementwise at the tolerance above
+        and each
         (query row, head) norm-wise; past S=512 one kv head (its query
         heads) at a time, as phase 7b holds blockwise attention (the full
         (H, S, S) scores of mixtral's and scout's admits would not fit
@@ -503,16 +536,16 @@ def check_flash(torch, rates):
         G = H // KVH
         mask = mask or {}
         q, k, v = qkv(*shape, dtype)
-        got = fla.flash_attention_bshd(q, k, v, causal=True, **mask)
+        got = fla.flash_attention_bshd(q, k, v, causal=causal, **mask)
         parts = range(KVH) if S > 512 else [None]
 
         def plain(h, m=mask):
             if h is None:
-                return fla.flash_attention_plain(q, k, v, causal=True, **m)
+                return fla.flash_attention_plain(q, k, v, causal=causal, **m)
             heads = slice(h * G, (h + 1) * G)
             return fla.flash_attention_plain(
                 q[:, :, heads], k[:, :, h:h + 1], v[:, :, h:h + 1],
-                causal=True, **m)
+                causal=causal, **m)
 
         def held(m, strict):
             """(max abs err, worst row's norm-wise err) of ``got`` against
@@ -552,12 +585,13 @@ def check_flash(torch, rates):
             out["shifted_plain_row_rel_err"] = shifted
         reps = 30 if S <= 512 else 10
         out["ms"] = median_ms(torch, lambda: fla.flash_attention_bshd(
-            q, k, v, causal=True, **mask), reps=reps)
+            q, k, v, causal=causal, **mask), reps=reps)
         out["plain_ms"] = median_ms(
             torch, lambda: [plain(h) for h in parts],
             reps=reps if S <= 512 else 3, warm=5 if S <= 512 else 1)
         pos = torch.arange(S, device=dev)
-        live = pos[None, :] <= pos[:, None]
+        live = ((pos[None, :] <= pos[:, None]) if causal
+                else torch.ones(S, S, dtype=torch.bool, device=dev))
         if "window" in mask:
             live &= (pos[:, None] - pos[None, :]) < mask["window"]
         if "chunk" in mask:
@@ -570,7 +604,7 @@ def check_flash(torch, rates):
             kw = dict(attn_mask=live)
         else:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            kw = dict(is_causal=True, enable_gqa=True)
+            kw = dict(is_causal=causal, enable_gqa=True)
         out["library_ms"] = median_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
             reps=reps)
@@ -593,7 +627,8 @@ def check_flash(torch, rates):
             out["cuda_core_bound_ms"] = bound(nops / f32_rate * 1e3)[0]
         out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
         log(f"  flash_attention_fwd {str(dtype).removeprefix('torch.')} at "
-            f"B,H,KVH,S,D={shape} causal{f' {mask}' if mask else ''}: max_abs_err "
+            f"B,H,KVH,S,D={shape} {'causal' if causal else 'non-causal'}"
+            f"{f' {mask}' if mask else ''}: max_abs_err "
             f"{out['max_abs_err']:.3g}, worst (row, head) "
             f"{out['max_row_rel_err']:.3g} of its norm (tol {row_tol}"
             + "".join(f"; plain with {name}: {err:.3g}"
@@ -629,6 +664,12 @@ def check_flash(torch, rates):
         entry["moe_admits"][arch] = {"shape_bshd": [B, S, H, KVH, D],
                                      "mask": mask,
                                      **timed(shape, torch.bfloat16, mask)}
+    entry["family_calls"] = {}
+    for name, (shape, causal) in FAMILY_FLASH.items():
+        B, H, KVH, S, D = shape
+        entry["family_calls"][name] = {
+            "shape_bshd": [B, S, H, KVH, D], "causal": causal,
+            **timed(shape, torch.bfloat16, causal=causal)}
     return entry
 
 
@@ -1995,50 +2036,81 @@ def profile_window(torch, name, fn, reps):
             "top_ms": {k: v / reps / 1e3 for k, v in top}}
 
 
+# phases 7e and 7v: the cut of each new family for card vs CPU (float32,
+# full width): seamless-m4t-large-v2 at 2 encoder + 2 decoder layers,
+# qwen2-vl-7b at 2 layers with 64 patches (a grid of 8) before its text
+FAMILY_PARITY = {
+    "seamless-m4t-large-v2": dict(enc_layers=2, dec_layers=2, num_layers=4),
+    "qwen2-vl-7b": dict(num_layers=2, num_patch_tokens=64),
+}
+
+
 def serving_device_parity(torch, arch="qwen3-4b", S=512):
-    """Phase 7 (and 7b (b), 7m): the serving path on the card and on the
-    CPU (plain versions) from the same params: ``arch`` at full width cut
-    to 2 layers, float32 (moonshot-v1-16b-a3b: its dense layer and one MoE
-    layer). Prefill S tokens into an S-position cache (as an admit:
-    qwen3-4b and moonshot at 512 take the flash branch, the kernel once a
-    layer on the card; stablelm-3b and h2o-danube-1.8b at 1024 take
-    ``blockwise_attention``, once per layer on each device), adopt the
-    cache into S + 4 positions, then 4 greedy decode steps fed the CPU's
-    tokens. Logits agree within 1e-3 of the logit scale (max |logit|):
-    float32 matmuls in other summation orders over d_model 2048-2560 and
-    d_ff 6912-11264. An MoE model's routers choose the same experts on
-    both devices (``check_routes``). Returns the worst relative error and
-    the card's launch counts."""
+    """Phase 7 (and 7b (b), 7m, 7e, 7v): the serving path on the card and
+    on the CPU (plain versions) from the same params: ``arch`` at full
+    width cut to 2 layers, float32 (moonshot-v1-16b-a3b: its dense layer
+    and one MoE layer; the new families as ``FAMILY_PARITY`` cuts them).
+    Prefill S inputs into an S-position cache (as an admit: qwen3-4b and
+    moonshot at 512 take the flash branch, the kernel once a layer on the
+    card; stablelm-3b and h2o-danube-1.8b at 1024 take
+    ``blockwise_attention``, once per layer on each device;
+    seamless-m4t-large-v2 encodes S frames, K5 non-causal once an encoder
+    layer, and its decoder's S tokens take K5 causal in self-attention and
+    non-causal in cross-attention; qwen2-vl-7b's S inputs are its patches
+    and then text, K5 causal under M-RoPE), adopt the cache into S + 4
+    positions (an encoder-decoder's cross K/V as the prefill left them),
+    then 4 greedy decode steps at the global index fed the CPU's tokens.
+    Logits agree within 1e-3 of the logit scale (max |logit|): float32
+    matmuls in other summation orders over d_model 1024-3584 and d_ff
+    6912-18944. An MoE model's routers choose the same experts on both
+    devices (``check_routes``). Returns the worst relative error and the
+    card's launch counts."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models.registry import build_model
-    from repro_torch.nn import moe
+    from repro_torch.nn import layers, moe
     from repro_torch.nn.param import init_tree, tree_from_leaves, tree_leaves
 
-    cfg = get_config(arch).replace(num_layers=2, dtype="float32",
-                                   param_dtype="float32")
+    cfg = get_config(arch).replace(**{
+        "num_layers": 2, "dtype": "float32", "param_dtype": "float32",
+        **FAMILY_PARITY.get(arch, {})})
     model = build_model(cfg)
     cpu = init_tree(torch.Generator().manual_seed(1), model.spec)
     card = tree_from_leaves((p, t.cuda()) for p, t in tree_leaves(cpu))
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, S))
+    rng = np.random.default_rng(2)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size, (1, S))}
+    if cfg.family == "encdec":  # as many frames as tokens: Sq == Skv
+        inputs["src"] = rng.standard_normal((1, S, cfg.d_model),
+                                            dtype=np.float32)
+    if cfg.family == "vlm":
+        n = cfg.num_patch_tokens
+        inputs["patches"] = rng.standard_normal((1, n, cfg.d_model),
+                                                dtype=np.float32)
+        inputs["tokens"] = inputs["tokens"][:, :S - n]
     outs = {}
     feed = []
     bw, _ = blockwise_watch()
-    routes = {}
+    routes, flash_causal = {}, {}
     for dev, params in (("cpu", cpu), ("cuda", card)):
         reset_launch_counts()
         rw = CallWatch(moe, "route", lambda a, kw, out: (
             out[0].cpu(), out[2].cpu()))
-        with torch.no_grad(), bw, rw:
-            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        fw = CallWatch(layers, "flash_attention_bshd",
+                       lambda a, kw, out: kw["causal"])
+        with torch.no_grad(), bw, rw, fw:
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in inputs.items()}
             logits, scratch = model.prefill(params, batch,
                                             model.init_cache(1, S, dev))
-            cache = model.init_cache(1, S + 4, dev)
-            for part in cache:
-                for key in ("k", "v"):
-                    cache[part][key][:, :, :S] = scratch[part][key]
+            cache = dict(tree_leaves(model.init_cache(1, S + 4, dev)))
+            for path, leaf in tree_leaves(scratch):
+                if path[-1] in ("k", "v"):
+                    cache[path][:, :, :S] = leaf
+                else:
+                    cache[path] = leaf
+            cache = tree_from_leaves(cache.items())
             steps = [logits.float().cpu()]
             for i in range(4):
                 if dev == "cpu":
@@ -2048,6 +2120,7 @@ def serving_device_parity(torch, arch="qwen3-4b", S=512):
                 steps.append(logits.float().cpu())
         outs[dev] = steps
         routes[dev] = rw.calls
+        flash_causal[dev] = fw.calls
     launches = _launches(torch)
     worst = 0.0
     for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
@@ -2064,11 +2137,21 @@ def serving_device_parity(torch, arch="qwen3-4b", S=512):
         raise AssertionError(f"{arch}: {len(bw.calls)} blockwise calls, "
                              f"expected {want_calls}")
     flash = S % 128 == 0 and cfg.hd in (64, 128) and cfg.rotary_pct == 1.0
+    # an encoder-decoder: the encoder's layers non-causal, then each
+    # decoder layer's self-attention causal and its cross-attention not
+    want_causal = ([False] * cfg.enc_layers + [True, False] * cfg.dec_layers
+                   if cfg.family == "encdec" else [True] * cfg.num_layers)
     want = {n: 0 for n in launches}
-    want["flash_attention_fwd"] = cfg.num_layers if flash else 0
-    if launches != want:
-        raise AssertionError(f"{arch} card launches {launches}, expected "
-                             f"{want}")
+    want["flash_attention_fwd"] = len(want_causal) if flash else 0
+    if launches != want or flash_causal["cuda"] != (
+            want_causal if flash else []) or (
+            flash_causal["cpu"] != flash_causal["cuda"]):
+        raise AssertionError(f"{arch} card launches {launches}, K5 causal "
+                             f"flags {flash_causal['cuda']}; expected "
+                             f"{want}, {want_causal}")
+    log(f"  {arch}: K5 {launches['flash_attention_fwd']} launches on the "
+        f"card ({sum(flash_causal['cuda'])} causal), the flash branch "
+        f"{len(flash_causal['cpu'])} times on the CPU")
     if cfg.moe:
         flips = check_routes(torch, routes["cuda"], routes["cpu"],
                              model.n_moe * 5)
@@ -2350,7 +2433,7 @@ def moe_serving_path(torch, arch: str):
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models.registry import build_model
-    from repro_torch.nn import layers, moe
+    from repro_torch.nn import moe
     from repro_torch.nn.param import init_tree, param_count
 
     n_layers, n_want, run, profiled = MOE_SERVE[arch]
@@ -2383,9 +2466,7 @@ def moe_serving_path(torch, arch: str):
     args = argparse.Namespace(eos_id=None, poll_every=8, batch=8,
                               watch=None, **run)
     reset_launch_counts()
-    fw = CallWatch(layers, "flash_attention_bshd", lambda a, kw, out: (
-        tuple(a[0].shape), tuple(a[1].shape), a[0].dtype,
-        kw.get("causal"), kw.get("window"), kw.get("chunk")))
+    fw = _flash_watch()
     mw = CallWatch(moe, "apply_moe", lambda a, kw, out: tuple(
         a[1].shape[:2]))
     with fw, mw:
@@ -2441,6 +2522,267 @@ def moe_serving_path(torch, arch: str):
             torch, model, params, capacity=run["capacity"],
             max_len=S + run["steps"] + 1, tick_reps=1)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _flash_watch():
+    """A ``CallWatch`` of the attention layer's K5 calls: (q shape, k
+    shape, dtype, causal, window, chunk) of each."""
+    from repro_torch.nn import layers
+
+    return CallWatch(layers, "flash_attention_bshd", lambda a, kw, out: (
+        tuple(a[0].shape), tuple(a[1].shape), a[0].dtype, kw.get("causal"),
+        kw.get("window"), kw.get("chunk")))
+
+
+def _family_model(torch, arch, n_want):
+    """``arch`` at full size, bf16 weights drawn on the card from a seed,
+    after a ``gc.collect()`` (earlier phases leave engines in reference
+    cycles): (cfg, model, params, init s)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.param import init_tree, param_count
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    n_params = param_count(model.spec)
+    if n_params != n_want:
+        raise AssertionError(f"{arch} has {n_params:,} params")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_tree(torch.Generator(dev).manual_seed(0), model.spec, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  {arch}: {n_params:,} params ({cfg.family}; d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}) drawn on "
+        f"the card in {init_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return cfg, model, params, init_s
+
+
+# phase 6e: requests, prompt tokens, new tokens, source frames a request
+ENCDEC_SERVE = dict(batch=4, prompt_len=128, steps=32, frames=512)
+
+
+def encdec_serving_path(torch):
+    """Phase 6e: seamless-m4t-large-v2 at full size (24 encoder + 24
+    decoder layers, bf16 weights drawn on the card) through
+    ``ServeEngine.generate`` with ``extra_batch={"src": ...}``: 4 requests
+    of 128 prompt tokens and 512 frame embeddings each (a numpy seed: the
+    frontend is a stub, as in the reference), 32 new tokens, two trials.
+    Counts zeroed just before: K5 exactly 24 times a prefill, every call
+    non-causal at (4, 512, 16, 16, 64) bf16 (the encoder); the decoder's
+    prefill (128 queries over a 161-position cache), its cross-attention
+    (128 queries over 512 frames) and every decode tick take
+    ``gqa_attention``; nothing else launched; every logit finite. tok/s,
+    prefill ms, decode-tick median ms, peak GB; a ``torch.profiler`` window
+    over one prefill and one decode tick."""
+    import numpy as np
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serving.engine import ServeEngine
+
+    run = ENCDEC_SERVE
+    cfg, model, params, init_s = _family_model(
+        torch, "seamless-m4t-large-v2", 2_034_784_256)
+    rng = np.random.default_rng(0)
+    B, P, n_new = run["batch"], run["prompt_len"], run["steps"]
+    prompts = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    src = rng.standard_normal((B, run["frames"], cfg.d_model),
+                              dtype=np.float32)
+    lm = WatchedLM(torch, model)
+    engine = ServeEngine(lm, params, max_len=P + n_new + 1)
+    fw = _flash_watch()
+    reset_launch_counts()
+    trials = []
+    with fw:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = engine.generate(prompts, steps=n_new,
+                                  extra_batch={"src": src})
+            trials.append(time.perf_counter() - t0)
+    launches = _launches(torch)
+    want = {n: 0 for n in launches}
+    want["flash_attention_fwd"] = 2 * cfg.enc_layers
+    if launches != want:
+        raise AssertionError(f"6e launches {launches}, expected {want}")
+    S, H, D = run["frames"], cfg.num_heads, cfg.hd
+    call = ((B, S, H, D), (B, S, cfg.kv_heads, D), torch.bfloat16, False,
+            None, None)
+    if fw.calls != [call] * (2 * cfg.enc_layers):
+        raise AssertionError(f"6e K5 calls {sorted(set(fw.calls))}, "
+                             f"expected {2 * cfg.enc_layers} x {call}")
+    if out.shape != (B, n_new) or not bool(lm.finite):
+        raise AssertionError(f"6e: output {out.shape}, finite "
+                             f"{bool(lm.finite)}")
+    decode = lm.times["decode"][-(n_new - 1):]
+    stats = {"params": 2_034_784_256, "init_s": init_s, **run,
+             "tok_s": B * n_new / trials[1], "trial_s": trials,
+             "prefill_ms": 1e3 * lm.times["prefill"][-1],
+             "decode_tick_ms_median": 1e3 * statistics.median(decode),
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches,
+             "flash_call": [list(call[0]), list(call[1]), "bfloat16",
+                            *call[3:]]}
+    log(f"  generate: {B} requests x {P} prompt tokens + {S} frames, "
+        f"{n_new} new tokens: {stats['tok_s']:.1f} tok/s (trial 1; trial 0 "
+        f"{B * n_new / trials[0]:.1f}), prefill {stats['prefill_ms']:.2f} "
+        f"ms, decode tick median {stats['decode_tick_ms_median']:.2f} ms; "
+        f"K5 launches {launches['flash_attention_fwd']} = 2 prefills x "
+        f"{cfg.enc_layers} encoder layers, non-causal at {call[0]}; peak "
+        f"memory {stats['max_memory_allocated_gb']:.2f} GB")
+    dev = torch.device("cuda")
+    batch = {"tokens": torch.as_tensor(prompts, device=dev),
+             "src": torch.as_tensor(src, device=dev)}
+    tok = torch.zeros(B, 1, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        _, cache = model.prefill(params, batch,
+                                 model.init_cache(B, P + n_new + 1, dev))
+        stats["profile"] = {
+            "prefill": profile_window(torch, "prefill", lambda: model.prefill(
+                params, batch, model.init_cache(B, P + n_new + 1, dev)), 1),
+            "decode tick": profile_window(
+                torch, "decode tick", lambda: model.decode_step(
+                    params, {"tokens": tok}, cache, P), 1)}
+    del params, engine, lm, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+# phase 6v (b): patch embeddings (the frontend stub) and text tokens of
+# the one image-and-text request, new tokens; the norm-wise tolerance of
+# forward's last logits against prefill's (the reference's bf16 decode
+# consistency tolerance at SMOKE, rtol/atol 0.06)
+VLM_REQUEST = dict(patches=1024, text=128, steps=32, tol=0.06)
+
+
+def vlm_serving_path(torch):
+    """Phase 6v: qwen2-vl-7b at full size (28 layers, bf16 weights drawn
+    on the card). (a) ``launch/serve.py``'s static mode, text-only: 8
+    prompts of 128 tokens, 32 new, two trials; no K5 (a static prefill has
+    Sq < Skv). (b) one image-and-text request, 1024 patch embeddings and
+    128 text tokens from a numpy seed: ``VLM.forward`` with K5 exactly 28
+    times, causal at (1, 1152, 28, 4, 128) bf16 under M-RoPE; then
+    ``VLM.prefill`` into 1152 + 32 positions (``gqa_attention``) and 32
+    ``decode_step``s at the global index, the reference's decode
+    consistency recipe. Forward's last logits agree with the prefill's
+    within ``VLM_REQUEST["tol"]`` of their norm; every logit finite. tok/s,
+    prefill ms, decode-tick median ms, peak GB; a ``torch.profiler`` window
+    over one forward and one decode tick of (b)."""
+    import argparse
+
+    import numpy as np
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import serve_static
+
+    cfg, model, params, init_s = _family_model(torch, "qwen2-vl-7b",
+                                               7_615_487_488)
+    dev = torch.device("cuda")
+    lm = WatchedLM(torch, model)
+    static = argparse.Namespace(batch=8, prompt_len=128, steps=32,
+                                eos_id=None)
+    reset_launch_counts()
+    tok_s = serve_static(lm, params, static, cfg.vocab_size, dev)
+    moved = _launches(torch)
+    if any(moved.values()) or not bool(lm.finite):
+        raise AssertionError(f"6v static: launches {moved}, finite "
+                             f"{bool(lm.finite)}")
+    decode = lm.times["decode"][-31:]
+    stats = {"params": 7_615_487_488, "init_s": init_s, "static": {
+        "batch": 8, "prompt_len": 128, "steps": 32, "tok_s": tok_s,
+        "prefill_ms": 1e3 * lm.times["prefill"][-1],
+        "decode_tick_ms_median": 1e3 * statistics.median(decode)}}
+    log(f"  (a) static, text-only: 8 x 128 prompt, 32 steps: {tok_s:.1f} "
+        f"tok/s, prefill {stats['static']['prefill_ms']:.2f} ms, decode "
+        f"tick median {stats['static']['decode_tick_ms_median']:.2f} ms; "
+        "no K5 launch")
+
+    run = VLM_REQUEST
+    Np, Nt, n_new = run["patches"], run["text"], run["steps"]
+    S = Np + Nt
+    rng = np.random.default_rng(1)
+    batch = {"patches": torch.as_tensor(rng.standard_normal(
+                 (1, Np, cfg.d_model), dtype=np.float32), device=dev),
+             "tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (1, Nt)), device=dev)}
+    fw = _flash_watch()
+    reset_launch_counts()
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad(), fw:
+        (logits, _), fwd_s = timed(lambda: model.forward(params, batch))
+        ok &= torch.isfinite(logits).all()
+        last_fwd = logits[:, -1].float()
+        del logits
+        launches = _launches(torch)
+        cache = model.init_cache(1, S + n_new, dev)
+        (logits, cache), prefill_s = timed(
+            lambda: model.prefill(params, batch, cache))
+        ok &= torch.isfinite(logits).all()
+        last = logits[:, -1].float()
+        rel = float((last_fwd - last).norm() / last.norm())
+        tok = last.argmax(-1)[:, None]
+        ticks = []
+        for i in range(n_new):
+            (logits, cache), dt = timed(lambda: model.decode_step(
+                params, {"tokens": tok}, cache, S + i))
+            ok &= torch.isfinite(logits).all()
+            tok = logits[:, -1:].argmax(-1)
+            ticks.append(dt)
+    want = {n: 0 for n in launches}
+    want["flash_attention_fwd"] = cfg.num_layers
+    call = ((1, S, cfg.num_heads, cfg.hd), (1, S, cfg.kv_heads, cfg.hd),
+            torch.bfloat16, True, None, None)
+    if launches != want or _launches(torch) != want:
+        raise AssertionError(f"6v forward launches {launches}, then "
+                             f"{_launches(torch)}; expected {want}")
+    if fw.calls != [call] * cfg.num_layers:
+        raise AssertionError(f"6v K5 calls {sorted(set(fw.calls))}, "
+                             f"expected {cfg.num_layers} x {call}")
+    if not bool(ok) or rel > run["tol"]:
+        raise AssertionError(f"6v: finite {bool(ok)}; forward vs prefill "
+                             f"last logits {rel:.3g} of their norm > "
+                             f"{run['tol']}")
+    stats["image_text"] = {
+        **run, "forward_ms": 1e3 * fwd_s, "prefill_ms": 1e3 * prefill_s,
+        "decode_tick_ms_median": 1e3 * statistics.median(ticks),
+        "tok_s": (1 + n_new) / (prefill_s + sum(ticks)),
+        "forward_vs_prefill_rel_err": rel, "launches": launches,
+        "flash_call": [list(call[0]), list(call[1]), "bfloat16",
+                       *call[3:]]}
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  (b) {Np} patches + {Nt} text tokens: forward "
+        f"{1e3 * fwd_s:.2f} ms with K5 {launches['flash_attention_fwd']} = "
+        f"{cfg.num_layers} layers causal at {call[0]} under M-RoPE; prefill "
+        f"{1e3 * prefill_s:.2f} ms, {n_new} decode steps at the global "
+        f"index, tick median {1e3 * statistics.median(ticks):.2f} ms, "
+        f"{stats['image_text']['tok_s']:.1f} tok/s; forward vs prefill last "
+        f"logits {rel:.3g} of their norm (tol {run['tol']}); peak memory "
+        f"{stats['max_memory_allocated_gb']:.2f} GB")
+    with torch.no_grad():
+        stats["profile"] = {
+            "forward": profile_window(
+                torch, "forward", lambda: model.forward(params, batch), 1),
+            "decode tick": profile_window(
+                torch, "decode tick", lambda: model.decode_step(
+                    params, {"tokens": tok}, cache, S + n_new - 1), 1)}
+    del params, lm, cache
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -3180,6 +3522,18 @@ def main() -> int:
         t0 = time.perf_counter()
         moe[arch] = moe_serving_path(torch, arch)
         moe[arch]["phase_s"] = time.perf_counter() - t0
+    families = {}
+    log("[6e] seamless-m4t-large-v2 at full size through "
+        "ServeEngine.generate with src frames (K5 non-causal in the "
+        "encoder)")
+    t0 = time.perf_counter()
+    families["6e"] = encdec_serving_path(torch)
+    families["6e"]["phase_s"] = time.perf_counter() - t0
+    log("[6v] qwen2-vl-7b at full size: launch/serve.py static, then one "
+        "image-and-text request (K5 under M-RoPE)")
+    t0 = time.perf_counter()
+    families["6v"] = vlm_serving_path(torch)
+    families["6v"]["phase_s"] = time.perf_counter() - t0
     lm = {}
     log(f"[8a] LM training at full width: qwen3-4b width, {HOTSWAP_LAYERS} "
         "layers, float32, ElasticSession on the card")
@@ -3213,6 +3567,16 @@ def main() -> int:
         torch, "moonshot-v1-16b-a3b", 512)
     moe["moonshot-v1-16b-a3b"]["card_vs_cpu_rel_err"] = rel
     moe["phase_7m_s"] = time.perf_counter() - t0
+    for phase, arch, S in (("7e", "seamless-m4t-large-v2", 128),
+                           ("7v", "qwen2-vl-7b", 256)):
+        log(f"[{phase}] serving card vs CPU: {arch} width, "
+            f"{FAMILY_PARITY[arch]}, float32, {S} inputs")
+        t0 = time.perf_counter()
+        rel, launches = serving_device_parity(torch, arch, S)
+        families[phase] = {"arch": arch, "inputs": S,
+                           "cut": FAMILY_PARITY[arch],
+                           "card_vs_cpu_rel_err": rel, "launches": launches,
+                           "phase_s": time.perf_counter() - t0}
 
     log("[8b] train_lm_elastic --preset 100m, k=4, tau=2, 3 rounds")
     t0 = time.perf_counter()
@@ -3245,6 +3609,11 @@ def main() -> int:
             **{f"{'6m' if arch.startswith('moonshot') else '6x'} {arch}":
                moe[arch]["launches"][name] for arch in MOE_SERVE},
             "7m": moe["7m_launches"][name]}
+        entry["family_launches"] = {
+            "6e": families["6e"]["launches"][name],
+            "6v": families["6v"]["image_text"]["launches"][name],
+            **{phase: families[phase]["launches"][name]
+               for phase in ("7e", "7v")}}
 
     log(f"[9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"train_cli": cli}))
@@ -3257,6 +3626,7 @@ def main() -> int:
     print(json.dumps({"hotswap": hotswap}))
     print(json.dumps({"lm_training": lm}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

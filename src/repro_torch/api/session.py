@@ -59,7 +59,7 @@ rank (``round_ms`` is the slowest rank's). ``save`` writes from rank 0
 only, in the same format; ``restore`` re-seats on every rank, from a
 checkpoint of any placement and world size.
 
-LM training (a ``dense`` ``arch`` or ``model_cfg``): the workers read
+LM training (an LM ``arch`` or ``model_cfg``): the workers read
 ``SyntheticTokens`` through the overlap ``TokenWorkerBatcher``
 (``seq_len``, ``n_tokens``), the master is evaluated on a held-out batch
 drawn from the same stream with ``seed + 31``, and ``evaluate`` returns
@@ -68,8 +68,10 @@ float32 flat buffers whatever the config's ``param_dtype``; the model
 computes in its activation dtype. Under the trainer's ``vmap(jvp(grad))``
 attention takes the reference's training path (``nn/layers.py``); the
 held-out eval runs under ``no_grad``, through the flash kernel at its
-shapes. The other LM families raise by name
-(``repro_torch.models.registry``).
+shapes. A VLM (qwen2-vl-7b) trains text-only, as the reference's
+session feeds it tokens only; an encoder-decoder session raises by name
+at construction (it needs ``src`` frames, and the reference's fails); the
+other LM families raise by name (``repro_torch.models.registry``).
 """
 from __future__ import annotations
 
@@ -232,6 +234,11 @@ class ElasticSession:
         self.device = resolve_device(spec.device)
         cfg = spec.model_cfg or get_config(spec.arch, smoke=spec.smoke)
         self.model_cfg = cfg
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: an encoder-decoder trains on source frames "
+                "'src' beside its tokens, and the session's LM data feeds "
+                "tokens only (the reference's session fails there too)")
         self.model = build_model(cfg)
         ecfg = spec.elastic
         if spec.plain:

@@ -3,7 +3,8 @@
 Field names, defaults and ``__post_init__`` validation mirror
 ``repro.configs.base`` so that a configuration means the same run in both
 packages. ``ModelConfig`` keeps the fields the paper's CNN and the
-decoder families the port runs (dense and mixture-of-experts) read;
+model families the port runs (dense, mixture-of-experts,
+encoder-decoder and vision-language) read;
 ``use_pallas`` is not carried across — the
 device of the tensors picks kernel or plain version. ``get_config``
 resolves the ported architectures and refuses every other by name.
@@ -29,7 +30,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "cnn" | "dense" | "moe" run in the port
+    family: str  # "cnn" | "dense" | "moe" | "encdec" | "vlm" run in the port
     num_layers: int
     d_model: int
     num_heads: int
@@ -60,6 +61,13 @@ class ModelConfig:
     capacity_factor: float = 1.25
     first_dense_layers: int = 0
     router_aux_weight: float = 0.01
+    # enc-dec
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_seq_ratio: int = 8  # decoder_len / encoder_len for shape derivation
+    # modality stubs
+    frontend: Optional[str] = None  # 'audio' | 'vision' | None
+    num_patch_tokens: int = 0  # vlm: patch embeddings prepended per sample
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
@@ -286,7 +294,8 @@ class OptimizerConfig:
 ARCH_ALIASES = {"paper-cnn": "paper_cnn"}
 PORTED_ARCHS = ("paper_cnn", "qwen3_4b", "stablelm_3b", "h2o_danube_1_8b",
                 "mixtral_8x22b", "llama4_scout_17b_a16e",
-                "moonshot_v1_16b_a3b")
+                "moonshot_v1_16b_a3b", "qwen2_vl_7b",
+                "seamless_m4t_large_v2")
 
 
 def normalize_arch(arch: str) -> str:

@@ -23,6 +23,14 @@ checked against ``--arch`` first).
         --traffic 16 --prompt-len 2048 --steps 64
     python -m repro_torch.launch.serve --device cpu --traffic 4 \\
         --restore ck --watch ck
+    python -m repro_torch.launch.serve --arch qwen2-vl-7b --full
+
+The continuous engine serves the dense and MoE families, as the
+reference's. A VLM (qwen2-vl-7b) serves text-only prompts in static mode.
+An encoder-decoder (seamless-m4t-large-v2) needs source frames, which
+this CLI does not make: its prefill raises naming ``src`` (the
+reference's CLI fails with ``KeyError: 'src'``); serve it through
+``ServeEngine.generate(..., extra_batch={"src": ...})``.
 """
 from __future__ import annotations
 

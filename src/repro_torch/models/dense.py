@@ -5,7 +5,9 @@ and the mixture-of-experts ones (mixtral-8x22b, llama4-scout-17b-a16e,
 moonshot-v1-16b-a3b, with first dense layers and shared experts):
 RMSNorm or LayerNorm, SwiGLU, GeGLU or GELU MLPs or the experts of
 ``nn/moe.py``, tied or untied unembeddings, full or partial rotary,
-sliding windows and attention chunks. M-RoPE raises by name. The
+sliding windows and attention chunks. ``positions`` and
+``input_embeds`` are the reference's hooks, which ``models/vlm.py``
+overrides (M-RoPE positions, patch embeddings before the text). The
 parameter tree is the reference's, leaf for leaf: ``embed`` (with
 ``unembed`` when untied), ``final_norm``, and the stacked
 ``dense_layers`` (every layer of a dense model, the first
@@ -55,6 +57,15 @@ def _apply_block(bp, x, cfg: ModelConfig, use_moe: bool, *, angles, q_pos,
     return x + m, aux
 
 
+def as_tree(params):
+    """A nested parameter tree, or the trainer's flat views keyed by dotted
+    leaf name (``FlatLayout.views``) made into one."""
+    if "embed" in params:
+        return params
+    return tree_from_leaves((tuple(name.split(".")), leaf)
+                            for name, leaf in params.items())
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -66,10 +77,6 @@ class DecoderLM:
     on one device, and every method computes there."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.rope_mode == "mrope":
-            raise NotImplementedError(
-                f"{cfg.name}: rope_mode='mrope' (nn/layers.py) not ported "
-                "to PyTorch yet")
         self.cfg = cfg
         n_dense = cfg.first_dense_layers if cfg.moe else cfg.num_layers
         self.n_dense, self.n_moe = n_dense, cfg.num_layers - n_dense
@@ -88,20 +95,32 @@ class DecoderLM:
         return [s for s in (("dense_layers", "dense", False, self.n_dense),
                             ("moe_layers", "moe", True, self.n_moe)) if s[3]]
 
+    # -- positions / embeddings ---------------------------------------------
+    def positions(self, batch, B, S, offset=0, device=None):
+        """Rope positions of S inputs from ``offset`` (an int or a (B, 1)
+        tensor): (B, S)."""
+        del batch
+        return api.default_positions(B, S, device) + offset
+
+    def input_embeds(self, params, batch):
+        return layers.embed(params["embed"], batch["tokens"], self.cfg)
+
     # -- full-sequence forward (train / logits) ------------------------------
     def forward(self, params, batch):
         """→ (logits (B, S, V), the router aux summed over the MoE layers:
-        a float32 scalar, 0 without them)."""
+        a float32 scalar, 0 without them). The rope angles come from
+        ``positions``; the mask positions are sequential."""
         cfg = self.cfg
-        x = layers.embed(params["embed"], batch["tokens"], cfg)
+        x = self.input_embeds(params, batch)
         B, S, _ = x.shape
-        pos = api.default_positions(B, S, x.device)
-        angles = layers.rope_angles(pos, cfg)
+        angles = layers.rope_angles(
+            self.positions(batch, B, S, device=x.device), cfg)
+        q_pos = api.default_positions(B, S, x.device)
         aux_total = torch.zeros((), device=x.device)
         for key, _, use_moe, n in self._stacks():
             for i in range(n):
                 x, aux = _apply_block(_layer(params[key], i), x, cfg, use_moe,
-                                      angles=angles, q_pos=pos)
+                                      angles=angles, q_pos=q_pos)
                 if aux is not None:
                     aux_total = aux_total + aux
         x = layers.apply_norm(params["final_norm"], x, cfg)
@@ -125,12 +144,15 @@ class DecoderLM:
                                                        cache_len)))
 
     def _with_cache(self, params, batch, cache, index):
-        """``index``: an int, or a (B, 1) tensor of per-row offsets."""
+        """``index``: an int, or a (B, 1) tensor of per-row offsets. The
+        query length counts every input embedding (a VLM's patches and
+        text)."""
         cfg = self.cfg
-        x = layers.embed(params["embed"], batch["tokens"], cfg)
+        x = self.input_embeds(params, batch)
         B, q_len, _ = x.shape
+        angles = layers.rope_angles(
+            self.positions(batch, B, q_len, index, x.device), cfg)
         q_pos = api.default_positions(B, q_len, x.device) + index
-        angles = layers.rope_angles(q_pos, cfg)
         for key, ckey, use_moe, n in self._stacks():
             ck, cv = cache[ckey]["k"], cache[ckey]["v"]
             for i in range(n):
@@ -150,9 +172,6 @@ class DecoderLM:
     def loss(self, params, batch):
         """``params``: a nested tree, or the trainer's flat views keyed by
         dotted leaf name (``FlatLayout.views``), as the CNN takes them."""
-        if "embed" not in params:
-            params = tree_from_leaves((tuple(name.split(".")), leaf)
-                                      for name, leaf in params.items())
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(as_tree(params), batch)
         ce = api.cross_entropy(logits, batch["targets"])
         return ce + self.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}

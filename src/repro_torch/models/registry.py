@@ -12,10 +12,18 @@ def build_model(cfg_or_arch, smoke: bool = False):
         from repro_torch.models.dense import DecoderLM
 
         return DecoderLM(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLM
+
+        return VLM(cfg)
     if cfg.family == "cnn":
         from repro_torch.models.cnn import PaperCNN
 
         return PaperCNN(cfg)
     raise NotImplementedError(
         f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-        "PyTorch yet (ported: dense, moe, cnn)")
+        "PyTorch yet (ported: dense, moe, encdec, vlm, cnn)")

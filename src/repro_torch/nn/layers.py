@@ -1,6 +1,6 @@
-"""Core transformer layers of the dense decoder: norms, RoPE (full or
-partial), GQA attention (causal / sliding-window / chunked, with a KV
-cache), MLPs, embeddings.
+"""Core transformer layers: norms, RoPE (full, partial or M-RoPE), GQA
+attention (causal / non-causal / sliding-window / chunked / cross, with a
+KV cache), MLPs, embeddings.
 
 Mirrors ``repro.nn.layers`` function for function, in the same layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, activations ``(B, S, H, D)``) and
@@ -13,10 +13,9 @@ Norms are RMSNorm or LayerNorm, MLPs SwiGLU, GeGLU or GELU (the tanh
 form, as ``jax.nn.gelu``'s default), the unembedding tied or a leaf of its
 own. Attention dispatches as the reference does: the flash kernel, the
 blockwise attention of ``nn/flash.py`` for long full-sequence calls, or
-the plain ``gqa_attention``. Left out until their slices: cross-attention
-(``kv_x`` / ``kv_precomputed`` of the encoder-decoder and VLM families)
-and M-RoPE (``DecoderLM`` refuses it). The reference's
-``logical_constraint`` calls are no-ops on one device and are dropped.
+the plain ``gqa_attention``, each with the reference's causal flag
+(``causal and not cross``). The reference's ``logical_constraint`` calls
+are no-ops on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -77,11 +76,24 @@ def _rot_dims(cfg: ModelConfig) -> int:
 
 
 def rope_angles(positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """positions (..., S) → angles (..., S, rot/2), float32."""
+    """positions (..., S), or (3, B, S) under M-RoPE → angles (..., S,
+    rot/2), float32. M-RoPE gives each of the ``half`` frequencies the
+    position channel (temporal, height, width) that ``mrope_sections``
+    assigns it, in order."""
     half = _rot_dims(cfg) // 2
     inv_freq = 1.0 / (cfg.rope_theta ** (
         torch.arange(half, dtype=torch.float32, device=positions.device)
         / half))
+    if cfg.rope_mode == "mrope":
+        secs = cfg.mrope_sections
+        if sum(secs) != half:
+            raise ValueError(f"{cfg.name}: mrope_sections {secs} must sum "
+                             f"to the rotary half {half}")
+        chan = torch.repeat_interleave(
+            torch.arange(len(secs), device=positions.device),
+            torch.tensor(secs, device=positions.device))
+        pos = positions[chan].movedim(0, -1)  # (B, S, half)
+        return pos.float() * inv_freq
     return positions[..., None].float() * inv_freq
 
 
@@ -101,10 +113,11 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor, cfg: ModelConfig
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / SWA / chunked, cache-aware)
+# Attention (GQA, causal / SWA / chunked / cross, cache-aware)
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig):
+def attention_specs(cfg: ModelConfig, cross: bool = False):
+    """A cross-attention block (``cross``) has no q/k norms."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd
     p = {
         "wq": ParamSpec((d, h, hd), cfg.pdtype, fan_in_init(0)),
@@ -112,7 +125,7 @@ def attention_specs(cfg: ModelConfig):
         "wv": ParamSpec((d, kvh, hd), cfg.pdtype, fan_in_init(0)),
         "wo": ParamSpec((h, hd, d), cfg.pdtype, fan_in_init(1)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ParamSpec((hd,), torch.float32, ones_init)
         p["k_norm"] = ParamSpec((hd,), torch.float32, ones_init)
     return p
@@ -154,12 +167,20 @@ def _write_cache(cache, new, idx):
 
 def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
                         angles: Optional[torch.Tensor] = None,
+                        kv_x: Optional[torch.Tensor] = None,
+                        kv_angles: Optional[torch.Tensor] = None,
                         q_pos: Optional[torch.Tensor] = None,
-                        cache=None, cache_index=None):
-    """Causal self-attention over ``x`` (B, Sq, d); keys sit at positions
-    ``0..Skv-1`` (the reference's ``kv_pos`` default).
+                        kv_pos: Optional[torch.Tensor] = None,
+                        causal: bool = True, cache=None, cache_index=None,
+                        kv_precomputed=None):
+    """Attention of ``x`` (B, Sq, d) over itself or over a memory.
 
-    - full sequence: ``cache is None``;
+    - self-attention: ``kv_x is None`` and no ``kv_precomputed``; rope
+      (``angles`` for the queries, ``kv_angles`` or else ``angles`` for the
+      keys) and the q/k norms apply;
+    - cross-attention: keys and values from ``kv_x`` (an encoder memory)
+      or the ``kv_precomputed`` pair (B, Skv, KVH, D); no rope, no q/k
+      norm, never causal;
     - with a cache ``dict(k=(B,S,KVH,D), v=...)``: the new K/V are written
       at ``cache_index`` (in place) and the queries attend over the whole
       cache. ``cache_index`` is an int, or a (B,) / (B, 1) tensor of
@@ -167,31 +188,44 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
       per-row ``q_pos`` / rope angles to match (``DecoderLM._with_cache``
       derives both from the same index).
 
+    Keys sit at ``kv_pos`` (default ``0..Skv-1``), queries at ``q_pos``
+    (default ``0..Sq-1``); the mask is causal when ``causal`` and the call
+    is not cross-attention, as in the reference.
+
     Dispatch as in the reference, with the tensors' device in place of
     ``use_pallas``: under the flash kernel's shape conditions
     (``Sq == Skv``, ``Sq % 128 == 0``, ``hd`` in {64, 128}, full rotary)
     the flash wrapper runs (the CUDA kernel on the card, its plain
-    version on the CPU); otherwise a call with ``Sq >= 1024`` and both
-    lengths multiples of 512 runs ``blockwise_attention`` (plain PyTorch
-    on either device); else the plain ``gqa_attention``. The flash kernel
-    has no backward (nor has the reference's, which training never
-    reaches: ``RunSpec.use_pallas`` is off by default), so a call that
-    autograd or a ``torch.func`` transform tracks (the trainer's
-    ``vmap(jvp(grad))``) skips the flash branch and takes the
-    reference's training path, blockwise or ``gqa_attention`` by the same
-    shape rule. Returns ``(out, cache)``.
+    version on the CPU), with the window and chunk only when causal;
+    otherwise a call with ``Sq >= 1024`` and both lengths multiples of
+    512 runs ``blockwise_attention`` (plain PyTorch on either device);
+    else the plain ``gqa_attention``. The flash kernel has no backward
+    (nor has the reference's, which training never reaches:
+    ``RunSpec.use_pallas`` is off by default), so a call that autograd or
+    a ``torch.func`` transform tracks (the trainer's ``vmap(jvp(grad))``)
+    skips the flash branch and takes the reference's training path,
+    blockwise or ``gqa_attention`` by the same shape rule. Returns
+    ``(out, cache)``.
     """
     B, Sq, _ = x.shape
     dt = x.dtype
+    cross = kv_x is not None or kv_precomputed is not None
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
-    if cfg.qk_norm:
+    if kv_precomputed is not None:
+        k, v = kv_precomputed
+    else:
+        src = kv_x if cross else x
+        k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(dt))
+    if cfg.qk_norm and not cross:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    if angles is not None and cfg.rope_mode != "none":
-        q = apply_rope(q, angles, cfg)
-        k = apply_rope(k, angles, cfg)
+    if not cross and cfg.rope_mode != "none":
+        if angles is not None:
+            q = apply_rope(q, angles, cfg)
+        ka = kv_angles if kv_angles is not None else angles
+        if ka is not None:
+            k = apply_rope(k, ka, cfg)
 
     if cache is not None:
         k = _write_cache(cache["k"], k, cache_index)
@@ -200,19 +234,24 @@ def multihead_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     Skv = k.shape[1]
     if q_pos is None:
         q_pos = torch.arange(Sq, device=x.device).expand(B, Sq)
-    kv_pos = torch.arange(Skv, device=x.device).expand(B, Skv)
+    if kv_pos is None:
+        kv_pos = torch.arange(Skv, device=x.device).expand(B, Skv)
 
+    is_causal = causal and not cross
+    window = cfg.sliding_window if is_causal else None
+    chunk = cfg.attention_chunk if is_causal else None
     if (Sq == Skv and Sq % 128 == 0 and cfg.hd in (64, 128)
             and cfg.rotary_pct == 1.0 and not tracked(q, k, v)):
         out = flash_attention_bshd(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-            window=cfg.sliding_window, chunk=cfg.attention_chunk)
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=is_causal,
+            window=window, chunk=chunk)
     elif Sq >= 1024 and Sq % 512 == 0 and Skv % 512 == 0:
         out = blockwise_attention(
-            q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
-            window=cfg.sliding_window, chunk=cfg.attention_chunk)
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=is_causal,
+            window=window, chunk=chunk)
     else:
-        out = gqa_attention(q, k, v, _attn_mask(q_pos, kv_pos, cfg, True))
+        out = gqa_attention(q, k, v,
+                            _attn_mask(q_pos, kv_pos, cfg, is_causal))
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
     return out, cache
 

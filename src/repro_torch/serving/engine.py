@@ -26,21 +26,38 @@ class ServeEngine:
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, *, steps: int = 32,
-                 eos_id: Optional[int] = None) -> np.ndarray:
+                 eos_id: Optional[int] = None,
+                 extra_batch=None) -> np.ndarray:
         """prompts (B, S0) int → (B, ≤steps) int32 generated tokens
         (greedy; the width shrinks only when every row hits ``eos_id``
         early). Rows that have emitted ``eos_id`` are pinned to it, and the
         pinned token is what is fed back. A request that could decode past
-        the ``max_len`` KV positions is rejected up front."""
+        the ``max_len`` KV positions is rejected up front.
+
+        ``extra_batch`` (arrays or tensors, e.g. an encoder-decoder's
+        ``src`` frames) joins the prefill batch on the engine's device. The
+        decode index starts at the text length ``S0``, as in the
+        reference's engine; a VLM prefill with ``patches`` would put the
+        decode's K/V and positions at patch slots, so ``patches`` raise:
+        drive ``prefill`` / ``decode_step`` at the global index for
+        those."""
         B, S0 = prompts.shape
         if S0 + steps > self.max_len:
             raise ValueError(
                 f"generate: prompt length {S0} + steps {steps} = "
                 f"{S0 + steps} overruns the KV cache (max_len="
                 f"{self.max_len}); raise max_len or request fewer steps")
+        if extra_batch and "patches" in extra_batch:
+            raise NotImplementedError(
+                "generate: extra_batch carries 'patches', but the decode "
+                f"index starts at the text length {S0} and would land on "
+                "patch slots; call the model's prefill / decode_step at "
+                "the global index (patches + text) instead")
         dev = self.params["embed"]["embedding"].device
         cache = self.model.init_cache(B, self.max_len, dev)
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
+        for key, val in (extra_batch or {}).items():
+            batch[key] = torch.as_tensor(val, device=dev)
         logits, cache = self.model.prefill(self.params, batch, cache)
         tok = logits[:, -1:].argmax(-1)
         out = [tok.cpu().numpy()]

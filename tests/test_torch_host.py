@@ -156,8 +156,8 @@ def test_same_bad_elastic_configs_raise(kw):
 
 def test_get_config_refuses_lm_families():
     """The ported archs resolve (paper-cnn; qwen3-4b, its SMOKE too; the
-    three MoE archs); every LM family still outside the port (hybrid,
-    rwkv6, encdec, vlm) raises naming itself."""
+    three MoE archs; the encoder-decoder and the VLM); every LM family
+    still outside the port (hybrid, rwkv6) raises naming itself."""
     assert tcfg.get_config("paper-cnn").name == "paper-cnn"
     assert tcfg.get_config("qwen3-4b").name == "qwen3-4b"
     assert tcfg.get_config("qwen3_4b", smoke=True).name == "qwen3-smoke"
@@ -165,7 +165,12 @@ def test_get_config_refuses_lm_families():
                  "moonshot-v1-16b-a3b"):
         assert tcfg.get_config(arch).name == arch
         assert tcfg.get_config(arch).family == "moe"
-    for arch in ("zamba2-7b", "rwkv6-3b", "seamless-m4t-large-v2",
-                 "qwen2-vl-7b"):
+    for arch, family, smoke in (
+            ("seamless-m4t-large-v2", "encdec", "seamless-smoke"),
+            ("qwen2-vl-7b", "vlm", "qwen2-vl-smoke")):
+        assert tcfg.get_config(arch).name == arch
+        assert tcfg.get_config(arch).family == family
+        assert tcfg.get_config(arch, smoke=True).name == smoke
+    for arch in ("zamba2-7b", "rwkv6-3b"):
         with pytest.raises(NotImplementedError, match=arch):
             tcfg.get_config(arch)

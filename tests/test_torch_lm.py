@@ -303,18 +303,28 @@ def test_loss_matches_reference():
 
 
 def test_unported_families_raise_by_name():
-    """M-RoPE and the families outside the port (hybrid, rwkv, encdec,
-    vlm) raise by name; experts build (tests/test_torch_moe_lm.py holds
-    them to the reference), and so do layernorm, the gelu MLPs and untied
-    unembeddings (tests/test_torch_dense_family.py)."""
+    """The families outside the port (hybrid, rwkv) raise by name; M-RoPE
+    builds, and a VLM under it computes (tests/test_torch_vlm.py holds it
+    to the reference); the encoder-decoder builds
+    (tests/test_torch_encdec.py); experts build (tests/test_torch_moe_lm.py
+    holds them to the reference), and so do layernorm, the gelu MLPs and
+    untied unembeddings (tests/test_torch_dense_family.py)."""
     moe = tbuild(tget("qwen3_4b", smoke=True).replace(num_experts=4))
     assert ("moe_layers", "moe", "router") in dict(tree_leaves(moe.spec))
-    for family in ("hybrid", "rwkv", "encdec", "vlm"):
+    for family in ("hybrid", "rwkv"):
         with pytest.raises(NotImplementedError, match=family):
             tbuild(tget("qwen3_4b", smoke=True).replace(family=family))
+    assert type(tbuild(tget("qwen3_4b", smoke=True).replace(
+        family="encdec", enc_layers=1, dec_layers=1))).__name__ == "EncDecLM"
     smoke = tget("qwen3_4b", smoke=True)
-    with pytest.raises(NotImplementedError, match="rope_mode='mrope'"):
-        tbuild(smoke.replace(rope_mode="mrope"))
+    mrope = smoke.replace(rope_mode="mrope", mrope_sections=(6, 5, 5))
+    assert tbuild(mrope).spec.keys() == tbuild(smoke).spec.keys()
+    vlm = tbuild(mrope.replace(family="vlm", num_patch_tokens=4))
+    assert type(vlm).__name__ == "VLM"
+    params = init_tree(torch.Generator().manual_seed(0), vlm.spec)
+    logits, _ = vlm.forward(params, {"tokens": torch.zeros(1, 6).long(),
+                                     "patches": torch.ones(1, 4, 128)})
+    assert logits.shape == (1, 10, 256) and bool(logits.isfinite().all())
     for kw, leaf in ((dict(norm="layernorm"), ("final_norm", "bias")),
                      (dict(act="gelu"), ("dense_layers", "mlp", "wi")),
                      (dict(tie_embeddings=False), ("embed", "unembed"))):

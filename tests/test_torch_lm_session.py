@@ -54,49 +54,50 @@ CASES = {"stablelm-adahessian-sequential": ("stablelm-3b", "adahessian",
 DIAG = ("u", "score", "h1", "h2", "loss_w")
 
 
-def _kw(arch, opt, comm, pkg):
+def _kw(arch, opt, comm, pkg, tau=TAU, rounds=ROUNDS):
     get, Opt, Elastic = ((rget, ROpt, RElastic) if pkg == "ref"
                          else (tget, TOpt, TElastic))
     cfg = get(arch, smoke=True).replace(dtype="float32",
                                         param_dtype="float32")
     return dict(model_cfg=cfg, optimizer=Opt(name=opt, lr=0.01),
-                elastic=Elastic(num_workers=K, tau=TAU, dynamic=True,
+                elastic=Elastic(num_workers=K, tau=tau, dynamic=True,
                                 comm_mode=comm),
-                rounds=ROUNDS, seed=SEED, n_tokens=4000, seq_len=16,
+                rounds=rounds, seed=SEED, n_tokens=4000, seq_len=16,
                 batch_size=2)
 
 
 @functools.lru_cache(maxsize=None)
-def reference_run(arch, opt, comm):
+def reference_run(arch, opt, comm, tau=TAU, rounds=ROUNDS):
     """The reference session's initial master, its (τ, k, n) probes, its
     records and state after every round, and its final ``evaluate()``."""
-    sess = RSession(RSpec(**_kw(arch, opt, comm, "ref")))
+    sess = RSession(RSpec(**_kw(arch, opt, comm, "ref", tau, rounds)))
     params0 = jax.device_get(sess.state["master"])
     flat = jax.jit(lambda key: jnp.concatenate(
         [x.reshape(-1) for x in jax.tree.leaves(
             rademacher_like(key, params0))]))
     probes, records, states = [], [], []
-    for r in range(ROUNDS):
+    for r in range(rounds):
         rng = jax.random.fold_in(jax.random.key(SEED), r)
         probes.append(np.stack([np.stack([np.asarray(flat(key)) for key in
                                           jax.random.split(rt, K)])
-                                for rt in jax.random.split(rng, TAU)]))
+                                for rt in jax.random.split(rng, tau)]))
         records += sess.run(1)
         states.append(jax.device_get(sess.state))
     return params0, probes, records, states, sess.evaluate()
 
 
 @functools.lru_cache(maxsize=None)
-def port_run(arch, opt, comm):
+def port_run(arch, opt, comm, tau=TAU, rounds=ROUNDS):
     """The port's session on the CPU from the reference's params and
     probes: its records, state after every round and final
     ``evaluate()``."""
-    params0, probes, _, _, _ = reference_run(arch, opt, comm)
+    params0, probes, _, _, _ = reference_run(arch, opt, comm, tau, rounds)
     sess = ElasticSession(
-        RunSpec(**_kw(arch, opt, comm, "port"), device="cpu"), params=params0,
+        RunSpec(**_kw(arch, opt, comm, "port", tau, rounds), device="cpu"),
+        params=params0,
         probe_fn=lambda r, t, i: torch.from_numpy(probes[r][t, i])[None])
     records, states = [], []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         records += sess.run(1)
         # a copy: on the CPU some arrays share the live tensors' memory
         states.append(copy.deepcopy(sess.trainer.state_to_numpy(sess.state)))

@@ -349,9 +349,14 @@ def test_session_refuses_unported_features_by_name():
     for arch in ("rwkv6-3b", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match=arch):
             ElasticSession(_spec(arch=arch, smoke=True))
-    vlm = tget("qwen3-4b", smoke=True).replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="'vlm'"):
-        ElasticSession(_spec(model_cfg=vlm))
+    # an encoder-decoder trains on source frames the LM data lacks; a VLM
+    # trains text-only, as the reference's session feeds it
+    with pytest.raises(NotImplementedError, match="seamless-smoke.*'src'"):
+        ElasticSession(_spec(arch="seamless-m4t-large-v2", smoke=True))
+    vlm = ElasticSession(_spec(arch="qwen2-vl-7b", smoke=True, seq_len=16,
+                               n_tokens=2000))
+    assert type(vlm.model).__name__ == "VLM"
+    assert sorted(vlm._test) == ["targets", "tokens"]
     moe = ElasticSession(_spec(arch="mixtral-8x22b", smoke=True,
                                seq_len=16, n_tokens=2000))
     assert moe.model.n_moe == 2 and "moe_layers.moe.router" in \

@@ -170,13 +170,15 @@ def test_lm_training_is_refused_by_name():
     """LM training on the dense and MoE families runs through the CLI (one
     round of qwen3-4b SMOKE here; tests/test_torch_lm_session.py and
     tests/test_torch_moe_session.py hold them to the reference); the LM
-    families the port lacks are still refused by name."""
+    families the port lacks are still refused by name, and so is an
+    encoder-decoder, whose source frames the LM data lacks."""
     sess, records = ttrain.main([
         "--device", "cpu", "--arch", "qwen3-4b", "--smoke", "--rounds", "1",
         "--workers", "2", "--seq-len", "16", "--batch-size", "2"])
     assert sess.model_cfg.name == "qwen3-smoke" and sess.spec.seq_len == 16
     assert len(records) == 1 and np.isfinite(records[0].loss)
-    for arch in ("rwkv6-3b", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match=arch):
+    for arch, match in (("rwkv6-3b", "rwkv6-3b"), ("zamba2-7b", "zamba2-7b"),
+                        ("seamless-m4t-large-v2", "seamless-smoke.*'src'")):
+        with pytest.raises(NotImplementedError, match=match):
             ttrain.main(["--device", "cpu", "--arch", arch, "--smoke",
                          "--rounds", "1"])
